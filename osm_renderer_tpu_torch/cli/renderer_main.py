@@ -1,0 +1,115 @@
+"""Renderer CLI: `python -m osm_renderer_tpu_torch.cli.renderer_main CONFIG [OSM_IDS...]`.
+
+Same INI surface as `osm_renderer_tpu.cli.renderer_main`:
+
+    [http]
+    address = 127.0.0.1:8080
+    [geodata]
+    file = city.bin
+    [style]
+    file = stylesheet/main.mapcss
+    type = josm            ; or mapsme
+    font-mul = 1.5         ; optional
+
+    [render]
+    backend = device       ; or cpu (the C++ oracle, no GPU)
+    device = cuda          ; CUDA device for backend = device (cuda, cuda:N)
+    gpus = 1               ; one GPU only for now
+    precision = fast       ; the only precision of the CUDA backend
+    png-level = 1
+    labels = yes
+    png-cache = 512
+    warmup = yes           ; render a few tiles before accepting traffic
+
+With backend = device, the server prints the number of render-kernel
+launches made while serving when it shuts down.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import configparser
+import os
+import sys
+
+
+def main(argv=None) -> int:
+    argv = argv if argv is not None else sys.argv[1:]
+    if len(argv) < 1:
+        print("Usage: renderer CONFIG [OSM_IDS]", file=sys.stderr)
+        return 1
+
+    config = configparser.ConfigParser()
+    if not config.read(argv[0]):
+        print(f"Failed to parse config from {argv[0]}", file=sys.stderr)
+        return 1
+
+    def require(section: str, name: str) -> str:
+        try:
+            return config[section][name]
+        except KeyError:
+            print(f"Property {name} is missing in section [{section}]", file=sys.stderr)
+            raise SystemExit(1)
+
+    address = require("http", "address")
+    geodata_file = require("geodata", "file")
+    stylesheet_file = require("style", "file")
+    stylesheet_type = require("style", "type")
+    if stylesheet_type not in ("josm", "mapsme"):
+        print(f"Unknown stylesheet type: {stylesheet_type}", file=sys.stderr)
+        return 1
+    font_mul = None
+    if config.has_option("style", "font-mul"):
+        font_mul = float(config["style"]["font-mul"])
+
+    osm_ids = {int(x) for x in argv[1:]} if len(argv) > 1 else None
+
+    backend = config.get("render", "backend", fallback="cpu")
+    device = config.get("render", "device", fallback="cuda")
+    gpus = int(config.get("render", "gpus", fallback="1"))
+    precision = config.get("render", "precision", fallback="fast")
+    png_level = int(config.get("render", "png-level", fallback="1"))
+    labels = config.getboolean("render", "labels", fallback=True)
+    png_cache = int(config.get("render", "png-cache", fallback="512"))
+    if backend not in ("cpu", "device"):
+        print(f"Unknown render backend: {backend}", file=sys.stderr)
+        return 1
+
+    from osm_renderer_tpu.mapcss.parser import parse_file
+    from osm_renderer_tpu.mapcss.styler import Styler
+    from osm_renderer_tpu_torch.ops import render_cuda
+
+    base_path, file_name = os.path.split(stylesheet_file)
+    rules = parse_file(base_path, file_name)
+    styler = Styler(rules, stylesheet_type, font_mul)
+
+    if backend == "device":
+        from osm_renderer_tpu_torch.server.http import TileService, run_server
+
+        service = TileService(
+            geodata_file, styler, base_path, osm_ids=osm_ids, enable_labels=labels,
+            precision=precision, png_level=png_level, png_cache_tiles=png_cache,
+            device=device, gpus=gpus,
+        )
+        if config.getboolean("render", "warmup", fallback=True):
+            print("Warming up the device path...")
+            print(f"Warmed {service.warmup()} tiles", flush=True)
+        render_cuda.RENDER_KERNEL_LAUNCHES = 0
+    else:
+        # The C++ oracle backend of the original server (needs no GPU).
+        from osm_renderer_tpu.server.http import TileService as CpuTileService, run_server
+
+        service = CpuTileService(
+            geodata_file, styler, base_path, backend="cpu", osm_ids=osm_ids,
+            enable_labels=labels, png_level=png_level, png_cache_tiles=png_cache,
+        )
+    print(f"Serving tiles on http://{address} (backend={backend})", flush=True)
+    asyncio.run(run_server(address, service))
+    if backend == "device":
+        print(f"render kernel launches while serving: {render_cuda.RENDER_KERNEL_LAUNCHES}",
+              flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

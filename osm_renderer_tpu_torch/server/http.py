@@ -1,0 +1,393 @@
+"""Slippy-tile HTTP server on one CUDA device.
+
+The port's device backend, with the URL contract and serving loop of
+`osm_renderer_tpu.server.http`: an async micro-batcher groups concurrent
+tile requests, `render_tiles_device` folds them per scale into batches
+(cold-heavy groups stream in pipelined sub-batches; chunk-dense groups
+halve on MAX_BATCH_CHUNKS), and each tile is encoded to PNG with its
+labels composited on the host.
+
+The original module cannot be imported where fontTools is missing (it
+imports the labeler at module level, and the labeler needs fontTools),
+so this module carries its own copy of that loop, cut to one device and
+to the raw planar readback: the render kernel is the only kernel on
+this path.  The labeler is imported only when labels are enabled.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import threading
+import time
+from collections import OrderedDict
+from typing import Dict, List, Optional, Set, Tuple
+
+import torch
+
+from osm_renderer_tpu import perfstats
+from osm_renderer_tpu.core.tile import MAX_ZOOM, Tile
+from osm_renderer_tpu.draw.drawer import CpuDrawer
+from osm_renderer_tpu.draw.png_writer import rgb_to_png
+from osm_renderer_tpu.geodata.reader import GeodataReader
+from osm_renderer_tpu.mapcss.styler import Styler
+from osm_renderer_tpu_torch.ops.chunk_layout import planar_to_rgb
+from osm_renderer_tpu_torch.parallel.renderer import BatchRenderer, RleTileView
+from osm_renderer_tpu_torch.utils.torch_setup import build_native_host_libs, resolve_device
+
+
+def extract_tile_from_path(path: str) -> Optional[Tuple[Tile, int]]:
+    """Parse `/{z}/{x}/{y}[@Nx].png[?query]` -> (tile, scale)."""
+    qpos = path.rfind("?")
+    real_path = path[:qpos] if qpos >= 0 else path
+    if real_path.endswith(".png"):
+        real_path = real_path[: -len(".png")]
+    tokens = real_path.rsplit("/", 3)
+    if len(tokens) < 3:
+        return None
+    z_str, x_str, y_str = tokens[-3:]
+    scale = 1
+    if "@" in y_str:
+        y_str, _, scale_str = y_str.partition("@")
+        try:
+            scale = int(scale_str.rstrip("x"))
+        except ValueError:
+            return None
+    try:
+        z, x, y = int(z_str), int(x_str), int(y_str)
+    except ValueError:
+        return None
+    if z < 0 or z > MAX_ZOOM or scale < 1 or scale > 4:
+        return None
+    return Tile(z, x, y), scale
+
+
+class TileService:
+    """Device-backend tile service on one CUDA device (`device="cpu"`
+    runs the kernel's plain twin; only the tests ask for it)."""
+
+    # Cold-heavy groups stream in sub-batches of this many tiles: host
+    # assembly of sub-batch N+1 overlaps the device work of sub-batch N.
+    COLD_SUB = 16
+
+    def __init__(
+        self,
+        geodata_file: str,
+        styler: Styler,
+        stylesheet_dir: str,
+        osm_ids: Optional[Set[int]] = None,
+        enable_labels: bool = True,
+        precision: str = "fast",
+        png_level: int = 1,
+        png_cache_tiles: int = 512,
+        device: str = "cuda",
+        gpus: int = 1,
+    ):
+        if gpus != 1:
+            raise ValueError(f"serving on {gpus} GPUs is not supported yet (one GPU only)")
+        if precision != "fast":
+            raise ValueError(
+                f"precision {precision!r} is not supported by the CUDA backend (only 'fast')"
+            )
+        build_native_host_libs()
+        self.reader = GeodataReader.load(geodata_file)
+        self.styler = styler
+        self.osm_ids = osm_ids
+        self.backend = "device"
+        self.png_level = png_level
+        # Served-PNG LRU: geodata and stylesheet are immutable for the
+        # server's lifetime (off under the osm_ids debug filter).
+        self._png_cache: "OrderedDict" = OrderedDict()
+        self._png_cache_lock = threading.Lock()
+        self.png_cache_tiles = 0 if osm_ids else png_cache_tiles
+        self.labeler = None
+        if enable_labels:
+            from osm_renderer_tpu.draw.labels.labeler import Labeler
+
+            self.labeler = Labeler(
+                icon_base_path=stylesheet_dir, use_atlas=True,
+                label_cache_tiles=0 if osm_ids else 512,
+            )
+        self.perf_stats = perfstats.PerfStats()
+        self._perf_lock = threading.Lock()
+        self._local = threading.local()
+        self._stylesheet_dir = stylesheet_dir
+        self.device = resolve_device(device)
+        self.batch_renderer = BatchRenderer(
+            styler, stylesheet_dir=stylesheet_dir, tile_bucket=True,
+            chunk_cache_tiles=0 if osm_ids else 512, device=self.device,
+        )
+
+    def warmup(self, n_tiles: int = 16) -> int:
+        """Render up to `n_tiles` real z15 tiles through the full device
+        path before accepting traffic (builds the kernel, fills the chunk
+        and label caches).  Failures raise."""
+        if not len(self.reader.tiles):
+            return 0
+        xs = self.reader.tiles["x"] >> 3
+        ys = self.reader.tiles["y"] >> 3
+        seen = list(dict.fromkeys(zip(xs.tolist(), ys.tolist())))[:n_tiles]
+        self.render_tiles_device([(Tile(15, x, y), 1) for x, y in seen])
+        with self._png_cache_lock:
+            self._png_cache.clear()
+        return len(seen)
+
+    def png_cache_get(self, tile: Tile, scale: int) -> Optional[bytes]:
+        if not self.png_cache_tiles:
+            return None
+        key = (tile.zoom, tile.x, tile.y, scale)
+        with self._png_cache_lock:
+            png = self._png_cache.get(key)
+            if png is not None:
+                self._png_cache.move_to_end(key)
+            return png
+
+    def _png_cache_put(self, tile: Tile, scale: int, png: bytes) -> None:
+        if not self.png_cache_tiles:
+            return
+        key = (tile.zoom, tile.x, tile.y, scale)
+        with self._png_cache_lock:
+            self._png_cache[key] = png
+            while len(self._png_cache) > self.png_cache_tiles:
+                self._png_cache.popitem(last=False)
+
+    def _cpu_drawer(self) -> CpuDrawer:
+        drawer = getattr(self._local, "drawer", None)
+        if drawer is None:
+            drawer = CpuDrawer(labeler=self.labeler, stylesheet_dir=self._stylesheet_dir)
+            self._local.drawer = drawer
+        return drawer
+
+    def _dispatch_group_device(self, tiles_entities, scale: int, t_prep0: float):
+        """Prepare + launch, without waiting for the device."""
+        prepared = self.batch_renderer.prepare(tiles_entities, scale)
+        prep_dt = time.perf_counter() - t_prep0
+        t0 = time.perf_counter()
+        planar = self.batch_renderer.render_prepared_planar(prepared)
+        return (planar, set(prepared.cpu_fallback_tiles), prep_dt, t0)
+
+    def _collect_group_device(self, pending):
+        """Wait for a dispatched batch and read it back raw:
+        (view, needs_cpu, prep_dt, exec_dt, d2h_dt)."""
+        planar, needs_cpu, prep_dt, t0 = pending
+        if planar.is_cuda:
+            torch.cuda.synchronize(planar.device)
+        exec_dt = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        rgb = planar_to_rgb(planar.cpu().numpy())
+        d2h_dt = time.perf_counter() - t1
+        return RleTileView(rgb.shape[0], rgb.shape[1], rgb=rgb), needs_cpu, prep_dt, exec_dt, d2h_dt
+
+    def render_tiles_device(self, requests: List[Tuple[Tile, int]]) -> List[bytes]:
+        """Batched device render; one dispatch per scale group (tiles the
+        batch cannot represent fall back to the C++ oracle)."""
+        out: Dict[int, bytes] = {}
+        by_scale: Dict[int, List[Tuple[int, Tile]]] = {}
+        for i, (tile, scale) in enumerate(requests):
+            by_scale.setdefault(scale, []).append((i, tile))
+
+        for scale, group in by_scale.items():
+            t0 = time.perf_counter()
+            ts = 256 * scale
+
+            # Entity fetch is skipped when both the chunk cache and (with
+            # labels) the label-layer cache hit.
+            def _need_entities(t: Tile) -> bool:
+                if not self.batch_renderer.has_cached_chunks(t, scale):
+                    return True
+                return self.labeler is not None and not self.labeler.has_cached_layer(t, ts)
+
+            tiles_entities = [
+                (self.reader.get_entities_in_tile_with_neighbors(t, self.osm_ids)
+                 if _need_entities(t) else None, t)
+                for _, t in group
+            ]
+            compacts = None
+            if self.labeler is not None:
+                compacts = []
+                for gi, (entities, t) in enumerate(tiles_entities):
+                    if entities is None and not self.labeler.has_cached_layer(t, ts):
+                        # Evicted since the check above: re-fetch.
+                        entities = self.reader.get_entities_in_tile_with_neighbors(t, self.osm_ids)
+                        tiles_entities[gi] = (entities, t)
+                    compacts.append(
+                        self.labeler.ensure_layer(entities, t, float(scale), self.styler, ts)
+                    )
+            ent_dt = time.perf_counter() - t0
+            n = len(group)
+            n_uncached = sum(1 for e, _ in tiles_entities if e is not None)
+            if n > self.COLD_SUB and 2 * n_uncached > self.COLD_SUB:
+                bounds = list(range(0, n, self.COLD_SUB)) + [n]
+                subs = [slice(a, b) for a, b in zip(bounds, bounds[1:])]
+            else:
+                subs = [slice(0, n)]
+
+            def sub_compacts(sl):
+                return compacts[sl] if compacts is not None else None
+
+            inflight = None
+            for sl in subs + [None]:
+                pending = None
+                if sl is not None:
+                    t0 = time.perf_counter()
+                    try:
+                        pending = ("dispatched", self._dispatch_group_device(
+                            tiles_entities[sl], scale, t0))
+                    except ValueError as e:
+                        pending = ("err", time.perf_counter() - t0, str(e))
+                if inflight is not None:
+                    psl, pp = inflight
+                    if pp[0] == "dispatched":
+                        res = self._collect_group_device(pp[1])
+                    elif "MAX_BATCH_CHUNKS" in pp[2]:
+                        # Chunk-dense sub-batch: halve and retry on the device
+                        # (the failed prepare already filled the chunk cache).
+                        self._encode_split_sub(group[psl], tiles_entities[psl], scale, out,
+                                               ent_dt / n, sub_compacts(psl))
+                        inflight = (sl, pending) if sl is not None else None
+                        continue
+                    else:
+                        res = (None, set(range(psl.stop - psl.start)), pp[1], None, None)
+                    self._encode_sub(group[psl], tiles_entities[psl], scale, out, ent_dt / n,
+                                     sub_compacts(psl), *res)
+                inflight = (sl, pending) if sl is not None else None
+        return [out[i] for i in range(len(requests))]
+
+    def _encode_split_sub(self, sub_group, sub_te, scale, out, ent_share, sub_compacts) -> None:
+        """Render a chunk-dense sub-batch by recursive halving; a single
+        tile that alone overflows the bound falls back to the oracle."""
+        n = len(sub_group)
+        if n == 1:
+            self._encode_sub(sub_group, sub_te, scale, out, ent_share, sub_compacts,
+                             None, {0}, 0.0, None, None)
+            return
+        mid = n // 2
+        for sl in (slice(0, mid), slice(mid, n)):
+            sc = sub_compacts[sl] if sub_compacts is not None else None
+            t0 = time.perf_counter()
+            try:
+                res = self._collect_group_device(
+                    self._dispatch_group_device(sub_te[sl], scale, t0))
+            except ValueError as e:
+                if "MAX_BATCH_CHUNKS" not in str(e):
+                    raise
+                self._encode_split_sub(sub_group[sl], sub_te[sl], scale, out, ent_share, sc)
+                continue
+            self._encode_sub(sub_group[sl], sub_te[sl], scale, out, ent_share, sc, *res)
+
+    def _encode_sub(self, sub_group, sub_te, scale, out, ent_share, sub_compacts,
+                    view, needs_cpu, prep_dt, exec_dt, d2h_dt) -> None:
+        n = len(sub_group)
+        for gi, ((i, t), (entities, _)) in enumerate(zip(sub_group, sub_te)):
+            # One kernel renders the whole sub-batch, so device phases are
+            # attributed to its tiles as equal shares of measured spans.
+            perfstats.start_tile(t.zoom)
+            perfstats.add_span("Get tile entities (batch share)", ent_share)
+            perfstats.add_span("Prepare device batch (batch share)", prep_dt / n)
+            if exec_dt is not None and d2h_dt is not None:
+                perfstats.add_span("Device execute (batch share)", exec_dt / n)
+                perfstats.add_span("Device readback (batch share)", d2h_dt / n)
+            with perfstats.measure("Compose and encode"):
+                if gi in needs_cpu or view is None:
+                    if entities is None:
+                        entities = self.reader.get_entities_in_tile_with_neighbors(
+                            t, self.osm_ids)
+                    img = self._cpu_drawer().draw_to_pixels(entities, t, scale, self.styler)
+                else:
+                    img = view.rgb(gi)
+                    if sub_compacts is not None and sub_compacts[gi] is not None:
+                        img = self.labeler.composite_labels(
+                            img, entities, t, float(scale), self.styler)
+                out[i] = rgb_to_png(img, self.png_level)
+            self._png_cache_put(t, scale, out[i])
+            with self._perf_lock:
+                perfstats.finish_tile(self.perf_stats)
+
+
+async def run_server(
+    address: str, service: TileService, batch_window_ms: float = 5.0, max_batch: int = 32,
+) -> None:
+    host, _, port_str = address.rpartition(":")
+    shutdown_event = asyncio.Event()
+    loop = asyncio.get_running_loop()
+    batch_queue: asyncio.Queue = asyncio.Queue()
+
+    async def batcher():
+        while True:
+            items = [await batch_queue.get()]
+            try:
+                deadline = loop.time() + batch_window_ms / 1e3
+                while len(items) < max_batch:
+                    timeout = deadline - loop.time()
+                    if timeout <= 0:
+                        break
+                    items.append(await asyncio.wait_for(batch_queue.get(), timeout))
+            except asyncio.TimeoutError:
+                pass
+            reqs = [(t, s) for (t, s, _) in items]
+            try:
+                pngs = await asyncio.to_thread(service.render_tiles_device, reqs)
+                for (_, _, fut), png in zip(items, pngs):
+                    if not fut.done():
+                        fut.set_result(png)
+            except Exception as e:  # handed to every waiting request
+                for (_, _, fut) in items:
+                    if not fut.done():
+                        fut.set_exception(e)
+
+    batcher_task = asyncio.create_task(batcher())
+
+    async def handle(reader: asyncio.StreamReader, writer: asyncio.StreamWriter):
+        try:
+            tokens = (await reader.readline()).decode("latin-1").strip().split(" ")
+            if len(tokens) != 3 or tokens[0] != "GET" or tokens[2] not in ("HTTP/1.1", "HTTP/1.0"):
+                return
+            path = tokens[1]
+            if path == "/shutdown":
+                shutdown_event.set()
+                await _respond(writer, b"shutting down\n", "text/plain")
+                return
+            if path == "/perf_stats":
+                with service._perf_lock:
+                    html = service.perf_stats.to_html()
+                await _respond(writer, html.encode(), "text/html")
+                return
+            parsed = extract_tile_from_path(path)
+            if parsed is None:
+                await _respond(writer, b"not a tile\n", "text/plain", status="404 Not Found")
+                return
+            tile, scale = parsed
+            png = service.png_cache_get(tile, scale)
+            if png is None:
+                fut = loop.create_future()
+                await batch_queue.put((tile, scale, fut))
+                png = await fut
+            await _respond(writer, png, "image/png")
+        except (ConnectionResetError, BrokenPipeError):
+            pass
+        finally:
+            writer.close()
+            try:
+                await writer.wait_closed()
+            except (ConnectionResetError, BrokenPipeError):
+                pass
+
+    server = await asyncio.start_server(handle, host or "127.0.0.1", int(port_str))
+    try:
+        await shutdown_event.wait()
+    finally:
+        batcher_task.cancel()
+        server.close()
+        await server.wait_closed()
+
+
+async def _respond(writer, data: bytes, content_type: str, status: str = "200 OK"):
+    header = (
+        f"HTTP/1.1 {status}\r\n"
+        f"Content-Type: {content_type}\r\n"
+        f"Content-Length: {len(data)}\r\n"
+        "Access-Control-Allow-Origin: *\r\n"
+        "Connection: close\r\n"
+        "\r\n"
+    ).encode()
+    writer.write(header + data)
+    await writer.drain()

@@ -1,0 +1,245 @@
+"""The port's served path on the CPU (the render kernel's plain twin)
+against the JAX package's device server (Pallas interpret) on the mini
+fixture: decoded tiles within 1/255 per channel, split batches equal to
+solo renders, and the HTTP front end end to end."""
+
+import asyncio
+import io
+import os
+import socket
+import threading
+import time
+import urllib.request
+
+import numpy as np
+import pytest
+from PIL import Image
+
+from osm_renderer_tpu.core.tile import Tile, coords_to_max_zoom_tile
+from osm_renderer_tpu.mapcss.parser import parse_file
+from osm_renderer_tpu.mapcss.styler import Styler
+from osm_renderer_tpu_torch.server.http import TileService, extract_tile_from_path, run_server
+
+from tests.conftest import REPO_ROOT
+from tests.fixtures import MINI_OSM
+
+STYLESHEET_DIR = os.path.join(REPO_ROOT, "assets", "stylesheets")
+
+
+def _rgb(png: bytes) -> np.ndarray:
+    assert png[:8] == b"\x89PNG\r\n\x1a\n"
+    return np.asarray(Image.open(io.BytesIO(png)).convert("RGB"))
+
+
+@pytest.fixture(scope="module")
+def mini_bin(tmp_path_factory):
+    from osm_renderer_tpu.geodata.importer import import_osm
+
+    tmp = tmp_path_factory.mktemp("serve")
+    osm_path = os.path.join(str(tmp), "mini.osm")
+    with open(osm_path, "w") as f:
+        f.write(MINI_OSM)
+    bin_path = os.path.join(str(tmp), "mini.bin")
+    import_osm(osm_path, bin_path)
+    return bin_path
+
+
+@pytest.fixture(scope="module")
+def styler():
+    return Styler(parse_file(STYLESHEET_DIR, "default.mapcss"), "josm")
+
+
+def _zoom_tiles():
+    t18 = coords_to_max_zoom_tile(47.1412, 9.5215)
+    return [Tile(z, t18.x >> (18 - z), t18.y >> (18 - z)) for z in range(12, 18)]
+
+
+def test_port_server_matches_jax_device_server(mini_bin, styler):
+    """Same tiles through the port (labels composited on the host) and
+    the JAX device backend (arena + device label blit, Pallas
+    interpret): <= 1/255 per channel."""
+    from osm_renderer_tpu.parallel.renderer import BatchRenderer as JaxBatchRenderer
+    from osm_renderer_tpu.server.http import TileService as JaxTileService
+
+    tiles = _zoom_tiles()
+    port = TileService(mini_bin, styler, STYLESHEET_DIR, device="cpu", png_cache_tiles=0)
+    ref = JaxTileService(mini_bin, styler, STYLESHEET_DIR, backend="device", png_cache_tiles=0)
+    ref.devices = ref.devices[:1]
+    ref.batch_renderer = JaxBatchRenderer(
+        styler, backend="pallas", interpret=True, stylesheet_dir=STYLESHEET_DIR,
+        tile_bucket=True, chunk_cache_tiles=512, arena=True,
+    )
+    ref.batch_renderers = [ref.batch_renderer]
+    got = port.render_tiles_device([(t, 1) for t in tiles])
+    want = ref.render_tiles_device([(t, 1) for t in tiles])
+    labeled = 0
+    for t, p_g, p_w in zip(tiles, got, want):
+        d = np.abs(_rgb(p_g).astype(int) - _rgb(p_w).astype(int))
+        assert d.max() <= 1, (t, d.max())
+        labeled += port.labeler.has_cached_layer(t, 256)
+    assert labeled, "no tile carried labels"
+    html = port.perf_stats.to_html()
+    assert "Device execute (batch share)" in html and "Compose and encode" in html
+
+
+def test_port_server_matches_oracle_at_2x(mini_bin, styler):
+    """Unlabeled @2x tiles equal the C++ oracle within 1/255."""
+    from osm_renderer_tpu.draw.drawer import CpuDrawer
+
+    port = TileService(mini_bin, styler, STYLESHEET_DIR, device="cpu", enable_labels=False)
+    tiles = _zoom_tiles()
+    pngs = port.render_tiles_device([(t, 2) for t in tiles])
+    drawer = CpuDrawer(stylesheet_dir=STYLESHEET_DIR)
+    for t, png in zip(tiles, pngs):
+        want = drawer.draw_to_pixels(port.reader.get_entities_in_tile_with_neighbors(t), t, 2,
+                                     styler)
+        got = _rgb(png)
+        assert got.shape == (512, 512, 3)
+        assert np.abs(got.astype(int) - want.astype(int)).max() <= 1, t
+
+
+def test_port_split_batches_equal_solo_renders(mini_bin, styler, monkeypatch):
+    """Chunk-dense groups halve on MAX_BATCH_CHUNKS and cold groups
+    stream in sub-batches; served pixels equal solo renders."""
+    port = TileService(mini_bin, styler, STYLESHEET_DIR, device="cpu", png_cache_tiles=0)
+    t18 = coords_to_max_zoom_tile(47.1412, 9.5215)
+    base = Tile(16, t18.x >> 2, t18.y >> 2)
+    tiles = [Tile(16, base.x + dx, base.y + dy) for dy in range(2) for dx in range(3)]
+    solo = [port.render_tiles_device([(t, 1)])[0] for t in tiles]
+    counts = [port.batch_renderer._chunk_cache[(t.zoom, t.x, t.y, 1)][0].kind.shape[0]
+              for t in tiles]
+    port.batch_renderer.MAX_BATCH_CHUNKS = max(counts) * 2 + 8
+    splits = []
+    orig = TileService._encode_split_sub
+
+    def spy(self, *a, **kw):
+        splits.append(len(a[0]))
+        return orig(self, *a, **kw)
+
+    monkeypatch.setattr(TileService, "_encode_split_sub", spy)
+    grouped = port.render_tiles_device([(t, 1) for t in tiles])
+    assert splits, "oversized group never took the split path"
+    for t, p_g, p_s in zip(tiles, grouped, solo):
+        np.testing.assert_array_equal(_rgb(p_g), _rgb(p_s), err_msg=str(t))
+
+    cold = TileService(mini_bin, styler, STYLESHEET_DIR, device="cpu", png_cache_tiles=0)
+    monkeypatch.setattr(TileService, "COLD_SUB", 2)
+    streamed = cold.render_tiles_device([(t, 1) for t in tiles])
+    for t, p_c, p_s in zip(tiles, streamed, solo):
+        np.testing.assert_array_equal(_rgb(p_c), _rgb(p_s), err_msg=str(t))
+
+
+def test_port_service_failures_surface(mini_bin, styler, monkeypatch):
+    """Warmup does not swallow failures; unsupported setups raise."""
+    from osm_renderer_tpu_torch.parallel.renderer import BatchRenderer
+
+    with pytest.raises(ValueError):
+        TileService(mini_bin, styler, STYLESHEET_DIR, device="cpu", gpus=2)
+    with pytest.raises(ValueError):
+        TileService(mini_bin, styler, STYLESHEET_DIR, device="cpu", precision="exact")
+    port = TileService(mini_bin, styler, STYLESHEET_DIR, device="cpu")
+    assert port.warmup() == 1  # the mini fixture spans one z15 tile
+
+    def boom(self, prepared):
+        raise RuntimeError("render failed")
+
+    monkeypatch.setattr(BatchRenderer, "render_prepared_planar", boom)
+    fresh = TileService(mini_bin, styler, STYLESHEET_DIR, device="cpu")
+    with pytest.raises(RuntimeError, match="render failed"):
+        fresh.warmup()
+
+
+def test_extract_tile_from_path():
+    assert extract_tile_from_path("/15/100/200.png") == (Tile(15, 100, 200), 1)
+    assert extract_tile_from_path("/tiles/15/100/200.png?nonce=7") == (Tile(15, 100, 200), 1)
+    assert extract_tile_from_path("/18/1/2@2x.png") == (Tile(18, 1, 2), 2)
+    assert extract_tile_from_path("/19/1/2.png") is None
+    assert extract_tile_from_path("/a/b/c.png") is None
+    assert extract_tile_from_path("/shutdown") is None
+
+
+def test_port_http_end_to_end(mini_bin, styler):
+    """The micro-batching HTTP front end over the port's service."""
+    service = TileService(mini_bin, styler, STYLESHEET_DIR, device="cpu")
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    thread = threading.Thread(
+        target=lambda: asyncio.run(run_server(f"127.0.0.1:{port}", service)), daemon=True)
+    thread.start()
+    for _ in range(100):
+        try:
+            with socket.create_connection(("127.0.0.1", port), timeout=0.2):
+                break
+        except OSError:
+            time.sleep(0.05)
+    url = f"http://127.0.0.1:{port}"
+    try:
+        import concurrent.futures
+
+        reqs = [(t, s) for t in _zoom_tiles() for s in (1, 2)]
+
+        def get(req):
+            t, s = req
+            suffix = f"@{s}x" if s > 1 else ""
+            with urllib.request.urlopen(f"{url}/{t.zoom}/{t.x}/{t.y}{suffix}.png",
+                                        timeout=120) as resp:
+                assert resp.status == 200
+                assert resp.headers["Access-Control-Allow-Origin"] == "*"
+                return resp.read()
+
+        with concurrent.futures.ThreadPoolExecutor(len(reqs)) as ex:
+            pngs = list(ex.map(get, reqs))
+        for (t, s), png in zip(reqs, pngs):
+            assert _rgb(png).shape == (256 * s, 256 * s, 3)
+        with urllib.request.urlopen(f"{url}/perf_stats", timeout=30) as resp:
+            assert "Device execute (batch share)" in resp.read().decode()
+        with pytest.raises(urllib.error.HTTPError):
+            urllib.request.urlopen(f"{url}/1/2/x.png", timeout=30)
+    finally:
+        urllib.request.urlopen(f"{url}/shutdown", timeout=10).read()
+        thread.join(timeout=10)
+    assert not thread.is_alive()
+
+
+def test_port_cli_serves_and_reports_launches(mini_bin, tmp_path):
+    """`python -m osm_renderer_tpu_torch.cli.renderer_main` with
+    backend = device on the CPU twin: warm-up, serve, shut down, and
+    report the kernel launches made while serving (none on the CPU)."""
+    import subprocess
+    import sys
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    conf = tmp_path / "server.conf"
+    conf.write_text(
+        f"[http]\naddress = 127.0.0.1:{port}\n[geodata]\nfile = {mini_bin}\n"
+        f"[style]\nfile = {os.path.join(STYLESHEET_DIR, 'default.mapcss')}\ntype = josm\n"
+        "[render]\nbackend = device\ndevice = cpu\nlabels = no\nwarmup = yes\n"
+    )
+    log = tmp_path / "server.log"
+    with open(log, "w") as f:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "osm_renderer_tpu_torch.cli.renderer_main", str(conf)],
+            cwd=REPO_ROOT, stdout=f, stderr=subprocess.STDOUT,
+        )
+    try:
+        deadline = time.time() + 120
+        while "Serving tiles" not in log.read_text():
+            assert proc.poll() is None, log.read_text()
+            assert time.time() < deadline, log.read_text()
+            time.sleep(0.2)
+        url = f"http://127.0.0.1:{port}"
+        for t in _zoom_tiles()[2:4]:
+            with urllib.request.urlopen(f"{url}/{t.zoom}/{t.x}/{t.y}.png", timeout=60) as r:
+                assert _rgb(r.read()).shape == (256, 256, 3)
+        urllib.request.urlopen(f"{url}/shutdown", timeout=10).read()
+        assert proc.wait(timeout=60) == 0
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    text = log.read_text()
+    assert "Warmed 1 tiles" in text
+    assert "render kernel launches while serving: 0" in text
