@@ -6,26 +6,41 @@
 Phases (any failure exits non-zero; no phase is skipped):
 
 1. Card and toolchain: nvidia-smi name and power limit, torch and CUDA
-   versions, the render kernel's nvcc build time and ptxas report.
+   versions; both kernel sources (csrc/render.cu, csrc/rle.cu) built by
+   nvcc at once, with build times and ptxas reports.
 2. Fixtures: the synthetic cities (tools/make_fixture.py --blocks 24 and
    48, then geodata.importer.import_osm) under assets/fixtures/.
-3. Kernel against its plain PyTorch twin on the card, on real batches:
-   every minicity z15 tile, the bigcity z15 tiles (split under
+3. Render kernel against its plain PyTorch twin on the card, on real
+   batches: every minicity z15 tile, the bigcity z15 tiles (split under
    MAX_BATCH_CHUNKS the way the server splits), @2x, @3x and @4x batches,
    a z13/z14 batch (per-segment strokes), an oversize-fill scene (host
    layers) and an icon-fill scene (pattern blend).
    Bar: max |diff| <= 1 per channel and no pixel painted by one and not
-   the other.  Kernel time (CUDA events, after a warm run) beside the
-   twin's time on the same batch.
-4. The served path: `python -m osm_renderer_tpu_torch.cli.renderer_main`
+   the other.  Kernel time (CUDA events, mean of 5 after a warm launch)
+   beside the twin's time on the same batch.  Every batch also renders
+   through the arena entry (one packed upload, rows gathered from the
+   device chunk arena); bar: byte-identical to the plain-upload entry.
+4. Wire kernels against their plain versions on the card, on every
+   phase-3 planar batch: the v1 wire (run emit) and the v2 wire (run
+   emit + palette expand) with a palette learned from the batch's own
+   runs, a half palette and an all-PAL_PAD palette, each at a cap that
+   fits and at one that overflows.  Bar: bit-identical wires, and on
+   overflow a header total above the cap.  The fitting wires decode to
+   the planar batch's pixels.  Kernel ms beside plain ms at the bigcity
+   z15 and minicity @2x batches; wire bytes against raw planar bytes;
+   host decode ms per tile.
+5. The served path: `python -m osm_renderer_tpu_torch.cli.renderer_main`
    with backend = device, device = cuda on the minicity, labels = yes
    where fontTools (which the label renderer needs) is installed and
    labels = no otherwise, under an import guard that refuses jax;
    >= 32 distinct tiles requested
    concurrently (z13-z17, @1x and @2x); every response HTTP 200 with a
    valid PNG; unlabeled tiles within 1/255 of the C++ oracle (CpuDrawer);
-   the server's render-kernel launch count while serving > 0.
-5. No jax module was loaded.
+   while serving, the server launched the render, emit and expand
+   kernels, served at least one arena batch and one v2 wire batch.
+6. Warm served path in this process (labels off, PNG cache off): per-tile
+   spans of warm minicity z15 and bigcity z15 batches.
+7. No jax module was loaded.
 
 The second-to-last line is the kernels JSON object, the last line
 {"ok": true, "device": {...}}.  Without a CUDA device, or outside a
@@ -50,8 +65,15 @@ MINI_OSM = os.path.join(ROOT, "assets", "fixtures", "minicity.osm")
 MINI_BIN = os.path.join(ROOT, "assets", "fixtures", "minicity.bin")
 BIG_OSM = os.path.join(ROOT, "assets", "fixtures", "bigcity.osm")
 BIG_BIN = os.path.join(ROOT, "assets", "fixtures", "bigcity.bin")
-TPU_KERNEL = "osm_renderer_tpu/ops/render_pallas.py:1281"
-KERNEL_SOURCE = "osm_renderer_tpu_torch/csrc/render.cu"
+# name -> (source, the TPU kernel it replaces)
+KERNELS = {
+    "render_planar": ("osm_renderer_tpu_torch/csrc/render.cu",
+                      "osm_renderer_tpu/ops/render_pallas.py:1281"),
+    "rle_emit": ("osm_renderer_tpu_torch/csrc/rle.cu",
+                 "osm_renderer_tpu/ops/rle_pallas.py:56"),
+    "rle_expand": ("osm_renderer_tpu_torch/csrc/rle.cu",
+                   "osm_renderer_tpu/ops/rle_pallas.py:312"),
+}
 
 # Installed in this process and in the server subprocess: any import of
 # jax fails loudly instead of loading.
@@ -106,8 +128,25 @@ def painted(planar, canvas_u8):
     return (planar[:, :3] != c).any(dim=1)
 
 
+def time_ms(fn, reps: int = 5) -> float:
+    """Mean ms of `reps` launches of fn() after one warm launch (CUDA
+    events around the run)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    ev0.record()
+    for _ in range(reps):
+        fn()
+    ev1.record()
+    torch.cuda.synchronize()
+    return ev0.elapsed_time(ev1) / reps
+
+
 def compare(name, prepared, canvas_u8, kinds_seen, rows):
-    """Kernel vs twin on one prepared batch; appends a result row."""
+    """Kernel vs twin on one prepared batch; appends a result row and
+    returns the kernel's output."""
     import torch
 
     from osm_renderer_tpu_torch.ops import render_cuda as RC
@@ -117,16 +156,9 @@ def compare(name, prepared, canvas_u8, kinds_seen, rows):
     for k, n in enumerate(kinds):
         if n:
             kinds_seen.add(k)
-    out_k = RC.render_batch_planar(b, canvas, ts)       # warm run (and build)
-    torch.cuda.synchronize()
-    reps = 5
+    kernel_ms = time_ms(lambda: RC.render_batch_planar(b, canvas, ts))
+    out_k = RC.render_batch_planar(b, canvas, ts)
     ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    ev0.record()
-    for _ in range(reps):
-        out_k = RC.render_batch_planar(b, canvas, ts)
-    ev1.record()
-    torch.cuda.synchronize()
-    kernel_ms = ev0.elapsed_time(ev1) / reps
     ev0.record()
     out_t = RC.render_batch_planar_reference(b, canvas, ts)
     ev1.record()
@@ -144,6 +176,22 @@ def compare(name, prepared, canvas_u8, kinds_seen, rows):
     if max_diff > 1 or member != 0:
         raise AssertionError(f"{name}: kernel disagrees with its twin "
                              f"(max|diff| {max_diff}, membership mismatches {member})")
+    return out_k
+
+
+def compare_arena(name, render_arena, plain_out, rows):
+    """The arena entry's output must equal the plain-upload entry's byte
+    for byte; records the arena entry's ms (upload, gather and kernel)."""
+    import torch
+
+    got = render_arena()
+    torch.cuda.synchronize()
+    if not torch.equal(got, plain_out):
+        n = int((got != plain_out).sum().item())
+        raise AssertionError(f"{name}: arena entry differs from the plain entry in {n} bytes")
+    arena_ms = time_ms(render_arena)
+    rows[-1]["arena_ms"] = arena_ms
+    log(f"    arena entry: byte-identical, arena_ms={arena_ms:.4f}")
 
 
 def split_prepare(renderer, tiles_entities, scale):
@@ -162,8 +210,10 @@ def scene_batch(device, icon: bool):
     """A synthetic one-tile scene for the chunk kinds the cities lack:
     an oversize-coordinate fill and round-capped dashed stroke (host
     layers, KIND_LAYER) between two plain fills, or (icon=True) two
-    tiled icon fills (KIND_FILL_IMAGE) around a stroke."""
+    tiled icon fills (KIND_FILL_IMAGE) around a stroke.  -> (plain
+    PreparedBatch, arena render callable, canvas u8)."""
     import numpy as np
+    import torch
     from PIL import Image
 
     from osm_renderer_tpu.draw import primitives as P
@@ -171,6 +221,7 @@ def scene_batch(device, icon: bool):
     from osm_renderer_tpu.ops.coverage_np import LINE_CAP_BUTT, LINE_CAP_ROUND
     from osm_renderer_tpu_torch.ops import chunk_layout as CL
     from osm_renderer_tpu_torch.ops import render_cuda as RC
+    from osm_renderer_tpu_torch.parallel.arena import ChunkArena
     from osm_renderer_tpu_torch.parallel.renderer import PreparedBatch
 
     box = np.array([[30, 30, 90, 30], [90, 30, 90, 80], [90, 80, 30, 80], [30, 80, 30, 30]],
@@ -202,13 +253,25 @@ def scene_batch(device, icon: bool):
         ]
     profiles = P.ProfileTable()
     stream = P.stream_tile_packed(prims, profiles, CL.CH, patterns)
-    pb = CL.build_pallas_batch([stream], profiles, 256, patterns)
+    tc = CL.build_tile_chunks(stream, 256, profiles.chain_free_mask())
+    pb = CL.concat_pallas_batch([tc], profiles, 256, patterns)
     canvas = np.array([241, 238, 232], np.float32) / np.float32(255.0)
     b, c = RC.from_numpy_batch(pb, canvas, device)
-    return PreparedBatch(b, c, 256, 1), (241, 238, 232)
+
+    arena = ChunkArena(min_cap=64, device=device)
+    arena.insert([("scene", tc)])
+    packed, it = CL.pack_small_arena([tc], [arena.offset("scene")])
+    prof, tot = (torch.from_numpy(a).to(device) for a in profiles.arrays(np.float32))
+
+    def render_arena():
+        return RC.render_arena_planar(packed, arena, prof, tot, b.patterns, c, 256, 1, it)
+
+    return PreparedBatch(b, c, 256, 1), render_arena, (241, 238, 232)
 
 
-def phase_kernel(device, styler, rows, kinds_seen):
+def phase_kernel(device, styler, rows, kinds_seen, planars):
+    """Render kernel vs twin and arena entry vs plain entry; the kernel's
+    planar batches go to `planars` as (name, tensor on the card)."""
     from osm_renderer_tpu.geodata.reader import GeodataReader
     from osm_renderer_tpu_torch.ops import chunk_layout as CL
     from osm_renderer_tpu_torch.parallel.renderer import BatchRenderer
@@ -218,12 +281,15 @@ def phase_kernel(device, styler, rows, kinds_seen):
     def te(reader, tiles):
         return [(reader.get_entities_in_tile_with_neighbors(t), t) for t in tiles]
 
-    # One renderer per city: the chunk cache is keyed by tile address,
-    # and both synthetic cities cover the same tiles.
+    # One renderer pair per city: the chunk cache is keyed by tile
+    # address, and both synthetic cities cover the same tiles.
     for city, path in (("minicity", MINI_BIN), ("bigcity", BIG_BIN)):
         reader = GeodataReader.load(path)
-        r = BatchRenderer(styler, stylesheet_dir=STYLESHEET_DIR, chunk_cache_tiles=1024,
-                          device=str(device))
+        plain_r, arena_r = (
+            BatchRenderer(styler, stylesheet_dir=STYLESHEET_DIR, chunk_cache_tiles=1024,
+                          device=str(device), arena=arena)
+            for arena in (False, True)
+        )
         z15 = te(reader, z_tiles(reader, 15))
         batches = [(f"{city}_z15", z15, 1)]
         if city == "minicity":
@@ -233,17 +299,196 @@ def phase_kernel(device, styler, rows, kinds_seen):
             batches.append((f"{city}_z13_z14", te(reader, z_tiles(reader, 13)
                                                   + z_tiles(reader, 14)), 1))
         for name, tiles_entities, scale in batches:
-            for i, p in enumerate(split_prepare(r, tiles_entities, scale)):
-                compare(f"{name}[{i}]", p, canvas_u8, kinds_seen, rows)
-    prep, cu8 = scene_batch(device, icon=False)
-    compare("oversize_layer_scene", prep, cu8, kinds_seen, rows)
-    prep, cu8 = scene_batch(device, icon=True)
-    compare("icon_fill_scene", prep, cu8, kinds_seen, rows)
+            plain = split_prepare(plain_r, tiles_entities, scale)
+            arena = split_prepare(arena_r, tiles_entities, scale)
+            if len(plain) != len(arena) or any(p.arena_packed is None for p in arena):
+                raise AssertionError(f"{name}: the arena renderer did not take the arena path")
+            for i, (p, pa) in enumerate(zip(plain, arena)):
+                out = compare(f"{name}[{i}]", p, canvas_u8, kinds_seen, rows)
+                compare_arena(f"{name}[{i}]", lambda: arena_r.render_prepared_planar(pa),
+                              out, rows)
+                planars.append((f"{name}[{i}]", out))
+    for name, icon in (("oversize_layer_scene", False), ("icon_fill_scene", True)):
+        prep, render_arena, cu8 = scene_batch(device, icon=icon)
+        out = compare(name, prep, cu8, kinds_seen, rows)
+        compare_arena(name, render_arena, out, rows)
+        planars.append((name, out))
     need = {CL.KIND_FILL, CL.KIND_STROKE_SPAN, CL.KIND_STROKE, CL.KIND_STROKE_SOLID,
             CL.KIND_STROKE_DASH, CL.KIND_LAYER, CL.KIND_FILL_IMAGE}
     missing = need - kinds_seen
     if missing:
         raise AssertionError(f"real batches never reached chunk kinds {sorted(missing)}")
+
+
+# Batches whose wire kernels are timed (kernel ms beside plain ms).
+WIRE_TIMED = ("bigcity_z15[0]", "minicity_z15_2x[0]")
+
+
+def phase_wire(device, planars, wire_rows, decode):
+    """Emit and expand kernels vs their plain versions on every planar
+    batch of phase 3, at fitting and overflowing caps."""
+    import numpy as np
+    import torch
+
+    from osm_renderer_tpu_torch.ops import chunk_layout as CL
+    from osm_renderer_tpu_torch.ops import rle_cuda as RLE
+    from osm_renderer_tpu_torch.ops import rle_layout as RL
+
+    worst = {"rle_emit": 0, "rle_expand": 0}
+
+    def check(name, kernel, what, got, want, cap):
+        err = int((got.long() - want.long()).abs().max().item()) if got.shape == want.shape else -1
+        if err != 0:
+            raise AssertionError(f"{name} {what}: kernel wire differs from the plain version "
+                                 f"(shape {tuple(got.shape)} vs {tuple(want.shape)}, "
+                                 f"max |diff| {err})")
+        worst[kernel] = max(worst[kernel], err)
+        total = int(got[1])
+        return total, total > cap
+
+    for name, planar in planars:
+        T, ts = planar.shape[0], planar.shape[2]
+        runs, nb = RLE.runs_reference(planar)
+        total_runs = runs.numel()
+        rgb = CL.planar_to_rgb(planar.cpu().numpy())
+        # v1: a cap that fits, and one that overflows.
+        rtot = RL.rcap_bucket(total_runs)
+        v1 = RLE.encode_batch_wire(planar, rtot)
+        check(name, "rle_emit", "v1", v1, RLE.encode_batch_wire_reference(planar, rtot), rtot)
+        small = max(total_runs // 2, 1)
+        _, over = check(name, "rle_emit", "v1 overflow", RLE.encode_batch_wire(planar, small),
+                        RLE.encode_batch_wire_reference(planar, small), small)
+        if not over:
+            raise AssertionError(f"{name}: v1 cap {small} did not overflow")
+        host_v1 = v1.cpu().numpy()
+        tiles = RL.decode_wire_numpy(host_v1, ts)
+        if tiles is None or not all(np.array_equal(t, r) for t, r in zip(tiles, rgb)):
+            raise AssertionError(f"{name}: the v1 wire does not decode to the planar batch")
+        # v2: learned, half and all-PAL_PAD palettes.
+        colors, counts = (a.cpu().numpy() for a in torch.unique(runs & 0xFFFFFF,
+                                                                return_counts=True))
+        half = max(1, len(colors) // 2)
+        palettes = {
+            "learned": RL.build_palette(colors, counts),
+            "half": RL.build_palette(colors[:half], counts[:half]),
+            "pad": np.full(RL.PAL_CAP, RL.PAL_PAD, np.int32),
+        }
+        wcap = CL.next_bucket(3 * total_runs + 2, 8192)
+        words = {}
+        for pal, table in palettes.items():
+            tab = torch.from_numpy(table).to(device)
+            v2 = RLE.encode_wire_indexed(planar, wcap, tab)
+            total_words, over = check(name, "rle_expand", f"v2 {pal}", v2,
+                                      RLE.encode_wire_indexed_reference(planar, wcap, tab), wcap)
+            if over:
+                raise AssertionError(f"{name}: v2 {pal} overflowed its cap {wcap}")
+            words[pal] = total_words
+            if pal == "learned":
+                host_v2 = v2.cpu().numpy()
+                _check_v2_decode(name, host_v2, rgb, ts)
+        if not words["pad"] == 3 * total_runs or not words["half"] > total_runs:
+            raise AssertionError(f"{name}: palettes did not give both word forms: {words}")
+        wsmall = max(total_runs // 2 & ~1, 2)
+        tab = torch.from_numpy(palettes["learned"]).to(device)
+        _, over = check(name, "rle_expand", "v2 overflow", RLE.encode_wire_indexed(planar, wsmall, tab),
+                        RLE.encode_wire_indexed_reference(planar, wsmall, tab), wsmall)
+        if not over:
+            raise AssertionError(f"{name}: v2 cap {wsmall} did not overflow")
+        raw = planar.numel()
+        row = dict(name=name, T=T, ts=ts, runs=total_runs, words=words["learned"],
+                   raw_bytes=raw, v1_bytes=4 * (2 + T + total_runs),
+                   v2_bytes=4 * (3 + T + RL.PAL_CAP) + 2 * words["learned"])
+        if name in WIRE_TIMED:
+            row.update(_time_wire(planar, rtot, wcap, tab))
+            decode[name] = _time_decode(host_v1, host_v2, rgb, ts)
+        wire_rows.append(row)
+        timing = ""
+        if "emit_ms" in row:
+            timing = (f" emit_ms={row['emit_ms']:.4f} (plain {row['emit_plain_ms']:.2f})"
+                      f" expand_ms={row['expand_ms']:.4f} (plain {row['expand_plain_ms']:.2f})")
+        log(f"  {name}: runs={total_runs} words(learned/half/pad)={words['learned']}/"
+            f"{words['half']}/{words['pad']} bytes raw={raw} v1={row['v1_bytes']} "
+            f"v2={row['v2_bytes']}: bit-identical, overflow flagged{timing}")
+    return worst
+
+
+def _check_v2_decode(name, wire, rgb, ts):
+    import numpy as np
+
+    from osm_renderer_tpu_torch.ops import rle_layout as RL
+
+    T = int(wire[0])
+    n_words = wire[3 : 3 + T]
+    table = wire[3 + T : 3 + T + RL.PAL_CAP]
+    packed32 = wire[3 + T + RL.PAL_CAP :]
+    off = 0
+    for t in range(T):
+        got = RL.decode_words_numpy(packed32, off, int(n_words[t]), table, ts, ts)
+        if not np.array_equal(got, rgb[t]):
+            raise AssertionError(f"{name}: v2 tile {t} does not decode to the planar batch")
+        off += int(n_words[t])
+
+
+def _time_wire(planar, rtot, wcap, tab):
+    """Emit: the v1 wire, kernel vs plain.  Expand: from the same emitted
+    runs to the v2 wire, kernel vs plain."""
+    import torch
+
+    from osm_renderer_tpu_torch.ops import rle_cuda as RLE
+
+    T = planar.shape[0]
+    runs = torch.empty(wcap, dtype=torch.int32, device=planar.device)
+    nb, cum = RLE.emit_cuda(planar, runs, wcap)
+    runs_ref, nb_ref = RLE.runs_reference(planar)
+    return dict(
+        emit_ms=time_ms(lambda: RLE.encode_batch_wire(planar, rtot)),
+        emit_plain_ms=time_ms(lambda: RLE.encode_batch_wire_reference(planar, rtot)),
+        expand_ms=time_ms(lambda: RLE.expand_cuda(runs, nb, cum[-1:], T, wcap, tab)),
+        expand_plain_ms=time_ms(lambda: RLE.expand_reference(runs_ref, nb_ref, T, wcap, tab)),
+    )
+
+
+def _time_decode(v1, v2, rgb, ts):
+    """Host decode ms per tile of one batch: v2 through the serving
+    view (the native decoder where built, else the vectorised one), v2
+    through the per-word loop of png_writer's numpy fallback (a few
+    tiles), v1, and the raw planar transpose for scale."""
+    import numpy as np
+
+    from osm_renderer_tpu.draw import png_writer
+    from osm_renderer_tpu_torch.ops import rle_layout as RL
+    from osm_renderer_tpu_torch.parallel.renderer import RleTileView
+
+    T = int(v2[0])
+    n_words = v2[3 : 3 + T]
+    offs = np.concatenate([[0], np.cumsum(n_words)])
+    table = v2[3 + T : 3 + T + RL.PAL_CAP]
+    packed32 = v2[3 + T + RL.PAL_CAP :]
+    view = RleTileView(T, ts, words=(packed32, offs, table))
+    view.rgb(0)  # warm
+    t0 = time.perf_counter()
+    for i in range(T):
+        view.rgb(i)
+    v2_ms = (time.perf_counter() - t0) * 1e3 / T
+    n_loop = min(T, 3)
+    saved = png_writer._native, png_writer._native_failed
+    png_writer._native, png_writer._native_failed = None, True
+    try:
+        t0 = time.perf_counter()
+        for i in range(n_loop):
+            png_writer.rle_decode_words(packed32, int(offs[i]), int(n_words[i]), table, ts, ts)
+        loop_ms = (time.perf_counter() - t0) * 1e3 / n_loop
+    finally:
+        png_writer._native, png_writer._native_failed = saved
+    n_runs = v1[2 : 2 + T]
+    roffs = np.concatenate([[0], np.cumsum(n_runs)])
+    runs_view = RleTileView(T, ts, runs=(v1[2 + T :], roffs))
+    t0 = time.perf_counter()
+    for i in range(T):
+        runs_view.rgb(i)
+    v1_ms = (time.perf_counter() - t0) * 1e3 / T
+    return dict(native=png_writer._get_native() is not None, v2_ms=v2_ms, v2_loop_ms=loop_ms,
+                v1_ms=v1_ms, words_per_tile=float(n_words.mean()))
 
 
 def fetch(url: str, timeout: float = 300.0):
@@ -330,12 +575,21 @@ def phase_server(styler, rows_out, labels: bool, device="cuda"):
         text = f.read()
     if proc.returncode != 0:
         raise AssertionError(f"server exited with {proc.returncode}:\n{text[-4000:]}")
-    launches = None
+    launches, counts = {}, {}
     for line in text.splitlines():
-        if line.startswith("render kernel launches while serving:"):
-            launches = int(line.rsplit(":", 1)[1])
-    if not launches:
-        raise AssertionError(f"server made no render-kernel launch while serving:\n{text[-4000:]}")
+        for kernel in ("render", "emit", "expand"):
+            if line.startswith(f"{kernel} kernel launches while serving:"):
+                launches[kernel] = int(line.rsplit(":", 1)[1])
+        for what in ("batches", "readback bytes"):
+            if line.startswith(f"{what} while serving:"):
+                counts[what] = {k: int(v) for k, v in
+                                (kv.split("=") for kv in line.split(":", 1)[1].split())}
+    if not all(launches.get(k) for k in ("render", "emit", "expand")):
+        raise AssertionError(f"server did not launch every kernel while serving ({launches}):"
+                             f"\n{text[-4000:]}")
+    batches = counts.get("batches", {})
+    if not batches.get("arena") or not batches.get("v2"):
+        raise AssertionError(f"server served no arena batch or no v2 wire batch ({batches})")
 
     labeler = None
     if labels:
@@ -364,10 +618,41 @@ def phase_server(styler, rows_out, labels: bool, device="cuda"):
             raise AssertionError(f"{t}@{s}x: served tile is {d}/255 off the C++ oracle")
     if n_unlabeled == 0:
         raise AssertionError("no unlabeled tile to hold against the oracle")
+    rb = counts.get("readback bytes", {})
     log(f"  served {len(reqs)} distinct tiles in {serve_s:.2f} s: all HTTP 200 + PNG; "
-        f"{n_unlabeled} unlabeled tiles max |diff| vs oracle = {worst_unlabeled}; "
-        f"render kernel launches while serving = {launches}")
+        f"{n_unlabeled} unlabeled tiles max |diff| vs oracle = {worst_unlabeled}")
+    log(f"  kernel launches while serving: {launches}; batches: {batches}; "
+        f"readback bytes: wire {rb.get('wire')} for raw planar {rb.get('planar')}")
     rows_out["launches"] = launches
+
+
+def phase_inprocess(styler, device):
+    """Warm served path in this process: the server's per-tile spans over
+    warm batches (labels off, PNG cache off)."""
+    from osm_renderer_tpu.core.tile import Tile
+    from osm_renderer_tpu.perfstats import PerfStats
+    from osm_renderer_tpu_torch.server.http import TileService
+
+    for city, path, n in (("minicity", MINI_BIN, 30), ("bigcity", BIG_BIN, 32)):
+        svc = TileService(path, styler, STYLESHEET_DIR, enable_labels=False, png_cache_tiles=0,
+                          device=str(device))
+        svc.warmup()
+        reader = svc.reader
+        tiles = [(Tile(15, t.x, t.y), 1) for t in z_tiles(reader, 15)[:n]]
+        svc.render_tiles_device(tiles)          # cold: assembly and caps
+        svc.render_tiles_device(tiles)          # the caps settle
+        svc.perf_stats = PerfStats()
+        reps = 5
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            svc.render_tiles_device(tiles)
+        wall = (time.perf_counter() - t0) * 1e3 / (reps * len(tiles))
+        root = svc.perf_stats.by_zoom[15]
+        count = svc.perf_stats.tile_counts[15]
+        spans = {k: 1e3 * v.total / count for k, v in root.children.items()}
+        log(f"  {city} z15 x{len(tiles)} warm: {wall:.3f} ms/tile wall; per tile "
+            + ", ".join(f"{k} {v:.3f} ms" for k, v in spans.items())
+            + f"; batches {svc.batch_renderer.batch_counts}")
 
 
 def main() -> int:
@@ -390,14 +675,17 @@ def main() -> int:
     log(smi)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
 
-    log("phase 1: build")
+    log("phase 1: build (one nvcc per source, started together)")
     from osm_renderer_tpu_torch.ops import build
 
-    build.render_library(ptxas_verbose=True)
-    log(f"  render.cu nvcc build: {build.BUILD_SECONDS['render.cu']:.2f} s")
-    for line in build.PTXAS_REPORT["render.cu"].splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"  ptxas: {line.strip()}")
+    t0 = time.perf_counter()
+    build.build_all(ptxas_verbose=True)
+    log(f"  all kernels built in {time.perf_counter() - t0:.2f} s")
+    for source, seconds in sorted(build.BUILD_SECONDS.items()):
+        log(f"  {source} nvcc build: {seconds:.2f} s")
+        for line in build.PTXAS_REPORT[source].splitlines():
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
+                log(f"  ptxas: {line.strip()}")
     from osm_renderer_tpu_torch.utils.torch_setup import build_native_host_libs
 
     build_native_host_libs()
@@ -410,35 +698,59 @@ def main() -> int:
     styler = Styler(parse_file(STYLESHEET_DIR, "default.mapcss"), "josm")
 
     log("phase 3: render kernel vs its plain twin on the card "
-        "(bar: max |diff| <= 1 per channel, 0 membership mismatches)")
+        "(bar: max |diff| <= 1 per channel, 0 membership mismatches), "
+        "and the arena entry vs the plain entry (bar: byte-identical)")
     rows: list = []
     kinds_seen: set = set()
-    phase_kernel(device, styler, rows, kinds_seen)
+    planars: list = []
+    phase_kernel(device, styler, rows, kinds_seen, planars)
+
+    log("phase 4: wire kernels vs their plain versions on every phase-3 batch "
+        "(bar: bit-identical wires; overflow flagged)")
+    wire_rows: list = []
+    decode: dict = {}
+    worst = phase_wire(device, planars, wire_rows, decode)
+    for name, d in decode.items():
+        log(f"  host decode {name}: native decoder {'built' if d['native'] else 'absent'}; "
+            f"v2 {d['v2_ms']:.3f} ms/tile through the serving view, "
+            f"{d['v2_loop_ms']:.3f} ms/tile through the per-word loop; "
+            f"v1 {d['v1_ms']:.3f} ms/tile; {d['words_per_tile']:.0f} words/tile")
+    del planars
 
     import importlib.util
 
     labels = importlib.util.find_spec("fontTools") is not None
-    log(f"phase 4: served path (renderer_main, backend = device, "
+    log(f"phase 5: served path (renderer_main, backend = device, "
         f"labels = {'yes' if labels else 'no: fontTools is not installed'})")
     served: dict = {}
     phase_server(styler, served, labels)
 
-    log("phase 5: no jax")
+    log("phase 6: warm served path in process (labels off, PNG cache off)")
+    phase_inprocess(styler, device)
+
+    log("phase 7: no jax")
     if any(m == "jax" or m.startswith("jax.") for m in sys.modules):
         return fail("jax was imported")
     log("  jax not in sys.modules")
 
-    head = next(r for r in rows if r["name"].startswith("bigcity_z15"))
-    kernels = {"kernels": [{
-        "name": "render_planar",
-        "route": "cuda",
-        "source": KERNEL_SOURCE,
-        "replaces": TPU_KERNEL,
-        "launches": served["launches"],
-        "max_abs_err": max(r["max_diff"] for r in rows),
-        "ms": head["kernel_ms"],
-        "plain_ms": head["twin_ms"],
-    }]}
+    head = next(r for r in rows if r["name"] == "bigcity_z15[0]")
+    wire_head = next(r for r in wire_rows if r["name"] == "bigcity_z15[0]")
+    measured = {
+        "render_planar": (max(r["max_diff"] for r in rows), head["kernel_ms"],
+                          head["twin_ms"]),
+        "rle_emit": (worst["rle_emit"], wire_head["emit_ms"], wire_head["emit_plain_ms"]),
+        "rle_expand": (worst["rle_expand"], wire_head["expand_ms"],
+                       wire_head["expand_plain_ms"]),
+    }
+    launches = {"render_planar": served["launches"]["render"],
+                "rle_emit": served["launches"]["emit"],
+                "rle_expand": served["launches"]["expand"]}
+    kernels = {"kernels": [
+        {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+         "launches": launches[name], "max_abs_err": measured[name][0],
+         "ms": measured[name][1], "plain_ms": measured[name][2]}
+        for name, (source, replaces) in KERNELS.items()
+    ]}
     print(json.dumps(kernels), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

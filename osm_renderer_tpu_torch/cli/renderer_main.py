@@ -21,8 +21,10 @@ Same INI surface as `osm_renderer_tpu.cli.renderer_main`:
     png-cache = 512
     warmup = yes           ; render a few tiles before accepting traffic
 
-With backend = device, the server prints the number of render-kernel
-launches made while serving when it shuts down.
+With backend = device, the server prints, when it shuts down, the
+launches of each kernel made while serving (render, run emit, palette
+expand) and the batches it served by path: arena or plain upload, and
+v1 wire, v2 wire or raw planar readback.
 """
 
 from __future__ import annotations
@@ -77,7 +79,7 @@ def main(argv=None) -> int:
 
     from osm_renderer_tpu.mapcss.parser import parse_file
     from osm_renderer_tpu.mapcss.styler import Styler
-    from osm_renderer_tpu_torch.ops import render_cuda
+    from osm_renderer_tpu_torch.ops import render_cuda, rle_cuda
 
     base_path, file_name = os.path.split(stylesheet_file)
     rules = parse_file(base_path, file_name)
@@ -95,6 +97,11 @@ def main(argv=None) -> int:
             print("Warming up the device path...")
             print(f"Warmed {service.warmup()} tiles", flush=True)
         render_cuda.RENDER_KERNEL_LAUNCHES = 0
+        rle_cuda.EMIT_KERNEL_LAUNCHES = 0
+        rle_cuda.EXPAND_KERNEL_LAUNCHES = 0
+        for counts in (service.batch_renderer.batch_counts,
+                       service.batch_renderer.readback_bytes):
+            counts.update(dict.fromkeys(counts, 0))
     else:
         # The C++ oracle backend of the original server (needs no GPU).
         from osm_renderer_tpu.server.http import TileService as CpuTileService, run_server
@@ -106,8 +113,13 @@ def main(argv=None) -> int:
     print(f"Serving tiles on http://{address} (backend={backend})", flush=True)
     asyncio.run(run_server(address, service))
     if backend == "device":
-        print(f"render kernel launches while serving: {render_cuda.RENDER_KERNEL_LAUNCHES}",
-              flush=True)
+        print(f"render kernel launches while serving: {render_cuda.RENDER_KERNEL_LAUNCHES}")
+        print(f"emit kernel launches while serving: {rle_cuda.EMIT_KERNEL_LAUNCHES}")
+        print(f"expand kernel launches while serving: {rle_cuda.EXPAND_KERNEL_LAUNCHES}")
+        for what, counts in (("batches", service.batch_renderer.batch_counts),
+                             ("readback bytes", service.batch_renderer.readback_bytes)):
+            print(f"{what} while serving: " + " ".join(f"{k}={v}" for k, v in counts.items()))
+        sys.stdout.flush()
     return 0
 
 

@@ -37,7 +37,8 @@ BUILD_SECONDS: Dict[str, float] = {}
 PTXAS_REPORT: Dict[str, str] = {}
 
 _libs: Dict[str, ctypes.CDLL] = {}
-_lock = threading.Lock()
+_locks: Dict[str, threading.Lock] = {}
+_locks_guard = threading.Lock()
 
 
 def nvcc_path() -> str:
@@ -56,8 +57,12 @@ def nvcc_path() -> str:
 
 
 def load_library(source: str, ptxas_verbose: bool = False) -> ctypes.CDLL:
-    """Compile `csrc/<source>` (once per content hash) and load it."""
-    with _lock:
+    """Compile `csrc/<source>` (once per content hash) and load it.
+    Different sources build in parallel when called from several
+    threads."""
+    with _locks_guard:
+        lock = _locks.setdefault(source, threading.Lock())
+    with lock:
         lib = _libs.get(source)
         if lib is not None:
             return lib
@@ -100,3 +105,26 @@ def render_library(ptxas_verbose: bool = False) -> ctypes.CDLL:
     )
     return lib
 
+
+def rle_library(ptxas_verbose: bool = False) -> ctypes.CDLL:
+    lib = load_library("rle.cu", ptxas_verbose)
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.osmr_rle_count_runs.argtypes = [P, I, I, P, P]           # planar, T, ts, nb, stream
+    lib.osmr_rle_emit_runs.argtypes = [P, I, I, P, P, I, P]      # ..., off, out, rtot, stream
+    lib.osmr_rle_word_counts.argtypes = [P, P, I, P, P, P]       # runs, total, n, table, wc, stream
+    lib.osmr_rle_expand_words.argtypes = [P, P, I, P, P, P, I, P]  # ..., woff, words, wcap, stream
+    for fn in (lib.osmr_rle_count_runs, lib.osmr_rle_emit_runs, lib.osmr_rle_word_counts,
+               lib.osmr_rle_expand_words):
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def build_all(ptxas_verbose: bool = False) -> None:
+    """Build every kernel library at once: one nvcc per source, all
+    started together.  Raises the first build failure."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    loaders = (render_library, rle_library)
+    with ThreadPoolExecutor(len(loaders)) as ex:
+        for fut in [ex.submit(load, ptxas_verbose) for load in loaders]:
+            fut.result()

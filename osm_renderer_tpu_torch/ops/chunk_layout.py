@@ -3,7 +3,8 @@
 A jax-free copy of the host half of `osm_renderer_tpu.ops.render_pallas`:
 the layout constants, `TileChunks` / `PallasBatch`, `build_tile_chunks`
 and its helpers, `concat_pallas_batch`, `build_pallas_batch` and
-`planar_to_rgb`.  The CUDA machine has no jax, so the port cannot import
+`planar_to_rgb`, and the arena path's `N_SMALL` / `pack_small_arena`.
+The CUDA machine has no jax, so the port cannot import
 the original module; the code below is kept line-for-line identical to
 it, so both packages render from byte-identical inputs
 (tests/test_torch_chunk_layout.py pins that).
@@ -15,7 +16,7 @@ is.
 
 from __future__ import annotations
 
-from typing import List, NamedTuple
+from typing import List, NamedTuple, Tuple
 
 import numpy as np
 
@@ -1213,3 +1214,66 @@ def build_pallas_batch(
 def planar_to_rgb(planar: np.ndarray) -> np.ndarray:
     """(T, 4, ts, ts) u8 host array -> contiguous (T, ts, ts, 3)."""
     return np.ascontiguousarray(planar[:, :3].transpose(0, 2, 3, 1))
+
+
+# ---------------------------------------------------------------------------
+# Arena path (parallel/arena.py): warm serving uploads ONE small packed
+# buffer per batch; the big per-chunk fields stay device-resident and the
+# render jit assembles the batch with a row gather.
+# ---------------------------------------------------------------------------
+
+N_SMALL = 16 + NSEC  # i32 lanes in the packed small-field buffer
+
+
+def pack_small_arena(
+    tile_chunks: List[TileChunks], offsets: List[Tuple[int, int]]
+) -> Tuple[np.ndarray, int]:
+    """Host side of a warm batch: per-chunk scalars + arena gather rows
+    packed into one (N_SMALL, C) i32 buffer.  Lane layout:
+
+      0 tile_id  1 first  2 kind  3 cnt  4 last  5 y0  6 nb
+      7 prim_y0  8 prim_nb  9 pat  10-12 color rgb (f32 bits)
+      13 opacity (f32 bits)  14 hw (f32 bits)  15 gather row
+      16.. isec (NSEC lanes)
+
+    Returns (packed, IT) where IT is the batch's bucketed item width.
+    Mirrors concat_pallas_batch's bucketing/padding exactly (pads:
+    kind=KIND_PAD, pat=-1, tile_id=last tile, gather row 0 = the
+    arena's reserved zero row)."""
+    T = len(tile_chunks)
+    counts = [c.kind.shape[0] for c in tile_chunks]
+    total = sum(counts)
+    assert all(c % GROUP == 0 for c in counts), (
+        f"per-tile chunk counts not GROUP={GROUP}-aligned: {counts}"
+    )
+    Ctot = -(-next_bucket(max(total, 8), 8) // GROUP) * GROUP
+
+    packed = np.zeros((N_SMALL, Ctot), np.int32)
+    packed[9] = -1  # pat pad
+    pos = 0
+    for ti, (c, (off, n)) in enumerate(zip(tile_chunks, offsets)):
+        e = pos + n
+        packed[0, pos:e] = ti
+        packed[1, pos] = 1
+        packed[2, pos:e] = c.kind
+        packed[3, pos:e] = c.cnt
+        packed[4, pos:e] = c.last
+        packed[5, pos:e] = c.y0
+        packed[6, pos:e] = c.nb
+        packed[7, pos:e] = c.prim_y0
+        packed[8, pos:e] = c.prim_nb
+        packed[9, pos:e] = c.pat
+        packed[10:13, pos:e] = np.ascontiguousarray(
+            c.color.astype(np.float32).T
+        ).view(np.int32)
+        packed[13, pos:e] = c.opacity.astype(np.float32).view(np.int32)
+        packed[14, pos:e] = c.hw.astype(np.float32).view(np.int32)
+        packed[15, pos:e] = np.arange(off, off + n, dtype=np.int32)
+        packed[16:, pos:e] = c.isec.astype(np.int32).T
+        pos = e
+    if pos < Ctot:
+        packed[0, pos:] = max(T - 1, 0)
+
+    IT = max(c.items.shape[2] for c in tile_chunks)
+    IT = max(256, 1 << (IT - 1).bit_length())
+    return packed, IT

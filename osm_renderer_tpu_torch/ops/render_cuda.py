@@ -2,8 +2,9 @@
 PyTorch twin.
 
 Counterpart of the device half of `osm_renderer_tpu.ops.render_pallas`
-(`_render_body`, `_render_jit`, `render_batch_pallas_planar`).  The
-kernel itself is `csrc/render.cu`; its design notes are there.
+(`_render_body`, `_render_jit`, `render_batch_pallas_planar`, and the
+arena entry `_arena_render_jit`).  The kernel itself is
+`csrc/render.cu`; its design notes are there.
 
 * `from_numpy_batch` turns the host layout (a numpy `PallasBatch` from
   `ops.chunk_layout`, the canvas colour, the profile and pattern
@@ -11,6 +12,9 @@ kernel itself is `csrc/render.cu`; its design notes are there.
 * `render_batch_planar` checks its inputs and launches the kernel for
   CUDA tensors (raising if the launch fails); for CPU tensors it runs
   the twin.  It never falls back from a CUDA tensor.
+* `render_arena_planar` builds the batch from one packed upload and a
+  row gather from the device chunk arena (`parallel.arena`), then
+  renders it through `render_batch_planar`.
 * `render_batch_planar_reference` is the twin: the TPU kernel's f32 /
   int32 formulas, vectorized per chunk over the pixel windows the TPU
   kernel evaluated.  The tests hold it to Pallas interpret mode and to
@@ -193,6 +197,58 @@ def render_batch_planar(b: CudaBatch, canvas: torch.Tensor, ts: int) -> torch.Te
     with _launch_lock:
         RENDER_KERNEL_LAUNCHES += 1
     return out
+
+
+def render_arena_planar(
+    packed: np.ndarray, arena, prof_rows: torch.Tensor, prof_total: torch.Tensor,
+    patterns: torch.Tensor, canvas: torch.Tensor, ts: int, n_tiles: int, IT: int,
+) -> torch.Tensor:
+    """-> (T, 4, ts, ts) u8 planar, assembled on the arena's device.
+
+    Counterpart of `render_pallas._arena_render_jit`.  `packed` is the
+    host (N_SMALL, C) buffer of `chunk_layout.pack_small_arena`; it and
+    the tiles' chunk ranges, derived here from its tile lane, are the
+    batch's only upload (one copy).  The profile, pattern and canvas
+    tensors are already resident.  The arena rows are gathered by lane 15
+    with `index_select`, as the JAX package gathers them in XLA outside
+    its kernel, and the render kernel runs on the gathered batch."""
+    packed = np.ascontiguousarray(packed, dtype=np.int32)
+    if packed.ndim != 2 or packed.shape[0] != L.N_SMALL:
+        raise BatchLayoutError(f"packed has shape {packed.shape}, want ({L.N_SMALL}, C)")
+    if not 1 <= IT <= arena.items.shape[1]:
+        raise BatchLayoutError(f"item width {IT} outside [1, {arena.items.shape[1]}]")
+    tile_id, rows = packed[0], packed[15]
+    if np.any(np.diff(tile_id) < 0):
+        raise BatchLayoutError("tile_id must be non-decreasing (tiles' chunks contiguous)")
+    if rows.min(initial=0) < 0 or rows.max(initial=0) >= arena.cap:
+        raise BatchLayoutError("arena row index out of range of the arena")
+    if packed[9].max(initial=-1) >= patterns.shape[0]:
+        raise BatchLayoutError("chunk pattern index out of range of the pattern table")
+    tiles = np.arange(n_tiles)
+    tile_range = np.stack(
+        [np.searchsorted(tile_id, tiles, "left"), np.searchsorted(tile_id, tiles, "right")],
+        axis=1,
+    ).astype(np.int32)
+    N, C = packed.shape
+    up = torch.from_numpy(np.concatenate([packed.reshape(-1), tile_range.reshape(-1)]))
+    up = up.to(arena.geom.device)
+    pk = up[: N * C].view(N, C)
+    idx = pk[15].long()
+    batch = CudaBatch(
+        geom=arena.geom.index_select(0, idx),
+        trav=arena.trav.index_select(0, idx),
+        sprof=arena.sprof.index_select(0, idx),
+        aux=arena.aux.index_select(0, idx),
+        items=arena.items[:, :IT].index_select(0, idx).contiguous(),
+        isec=pk[16:].T.contiguous(),
+        # lanes: 2 kind 3 cnt 4 last 5 y0 6 nb 7 prim_y0 8 prim_nb 9 pat 1 first
+        chunk_i=pk[[2, 3, 4, 5, 6, 7, 8, 9, 1]].T.contiguous(),
+        # lanes 10-12 colour, 13 opacity, 14 hw: f32 bits
+        chunk_f=pk[10:15].T.contiguous().view(torch.float32),
+        profiles=prof_rows, prof_total=prof_total, patterns=patterns,
+        tile_range=up[N * C:].view(n_tiles, 2),
+    )
+    return render_batch_planar(batch, canvas, ts)
 
 
 # ---------------------------------------------------------------------------

@@ -1,11 +1,14 @@
 """Batched device rendering on one CUDA device.
 
-Counterpart of the kernel half of
-`osm_renderer_tpu.parallel.renderer.BatchRenderer` on its plain-upload
-entry: per-tile chunk arrays (cached per tile) are concatenated into one
-batch, uploaded, and rendered by the CUDA kernel
-(`ops.render_cuda.render_batch_planar`) into a u8 planar
-(T, 4, ts, ts) batch that is read back raw.
+Counterpart of `osm_renderer_tpu.parallel.renderer.BatchRenderer` on one
+device.  Per-tile chunk arrays are cached per tile.  With the chunk
+arena on (`arena=True`, the server's default), a batch uploads one small
+packed buffer and gathers the tiles' big chunk fields from the
+device-resident arena (`parallel.arena`); otherwise the batch's chunk
+arrays are concatenated and uploaded.  The CUDA render kernel
+(`ops.render_cuda`) writes a u8 planar (T, 4, ts, ts) batch, and the run
+emit and palette expand kernels (`ops.rle_cuda`) turn it into one wire
+array that crosses to the host (`RleRendered`, `fetch_tile_view`).
 """
 
 from __future__ import annotations
@@ -18,26 +21,73 @@ import numpy as np
 import torch
 
 from osm_renderer_tpu.core.tile import Tile
+from osm_renderer_tpu.draw import png_writer
 from osm_renderer_tpu.draw import primitives as prim_mod
 from osm_renderer_tpu.draw.primitives import FAST_COORD_BOUND, assemble_tile_prims
 from osm_renderer_tpu.mapcss.styler import Styler
 from osm_renderer_tpu_torch.draw import native_assembler as _na
 from osm_renderer_tpu_torch.ops import chunk_layout as L
 from osm_renderer_tpu_torch.ops import render_cuda as RC
+from osm_renderer_tpu_torch.ops import rle_cuda as RLE
+from osm_renderer_tpu_torch.ops import rle_layout
+from osm_renderer_tpu_torch.parallel.arena import ChunkArena
 from osm_renderer_tpu_torch.utils.torch_setup import next_pow2, resolve_device
 
 
 class PreparedBatch(NamedTuple):
-    batch: RC.CudaBatch
+    batch: Optional[RC.CudaBatch]  # None on the arena path
     canvas_rgb: torch.Tensor
     ts: int
     chunk: int  # n_tiles
     cpu_fallback_tiles: tuple = ()  # tile indices the device path can't draw
+    # Arena path: the packed small-field buffer is the only per-batch
+    # upload, and the big chunk fields are gathered from the arena.
+    arena_packed: Optional[np.ndarray] = None  # (N_SMALL, C) i32 host buffer
+    arena_it: int = 0                          # bucketed item width
+    arena_ctx: object = None                   # (arena, prof, tot, pat, generation)
+
+
+class RleRendered(NamedTuple):
+    """A rendered batch and its run-length wire, both on the device.
+
+    Only `wire` crosses to the host (`start_wire_copy` queues the copy);
+    when the batch overflowed the wire's cap the host reads `planar`
+    instead."""
+    planar: torch.Tensor  # (T, 4, ts, ts) u8
+    wire: torch.Tensor    # v1: (2 + T + rtot,) i32; v2: indexed-word wire
+    ts: int
+    rtot: int             # v1: run cap; v2: word cap
+    fmt: str = "v1"       # "v2" = indexed-colour 16-bit-word wire
+    host: Optional[torch.Tensor] = None        # pinned copy of `wire` in flight
+    executed: Optional[torch.cuda.Event] = None  # after the kernels
+    copied: Optional[torch.cuda.Event] = None    # after the copy
+
+
+def start_wire_copy(res: RleRendered) -> RleRendered:
+    """Queue the wire's device-to-host copy into pinned host memory
+    behind the kernels, without waiting (the counterpart of
+    `copy_to_host_async`).  A CPU wire is already on the host."""
+    if not res.wire.is_cuda:
+        return res
+    executed = torch.cuda.Event()
+    executed.record()
+    host = torch.empty(res.wire.shape, dtype=res.wire.dtype, pin_memory=True)
+    host.copy_(res.wire, non_blocking=True)
+    copied = torch.cuda.Event()
+    copied.record()
+    return res._replace(host=host, executed=executed, copied=copied)
+
+
+def wait_executed(res: RleRendered) -> None:
+    """Block until the batch's kernels have run (a wire from
+    `start_wire_copy`; a CPU wire is ready)."""
+    if res.executed is not None:
+        res.executed.synchronize()
 
 
 class BatchRenderer:
-    """One CUDA device's renderer (`device="cpu"` runs the kernel's plain
-    twin; only the tests ask for it)."""
+    """One CUDA device's renderer (`device="cpu"` runs the kernels' plain
+    versions; only the tests ask for it)."""
 
     # Host-rasterized layers (out-of-bound prims) accumulate in a
     # persistent pattern table as their tiles churn through the cache;
@@ -56,6 +106,7 @@ class BatchRenderer:
         tile_bucket: bool = False,
         chunk_cache_tiles: int = 0,
         device: str = "cuda",
+        arena: bool = False,
     ):
         self.device = resolve_device(device) if isinstance(device, str) else device
         self.styler = styler
@@ -63,9 +114,27 @@ class BatchRenderer:
         self.chunk_cache_tiles = chunk_cache_tiles
         self._chunk_cache: "OrderedDict" = OrderedDict()
         self._cache_lock = threading.RLock()
+        self._rtot_by_key: dict = {}      # (ts, T) -> adaptive v1 run cap
+        self._wtot_by_key: dict = {}      # (ts, T) -> adaptive v2 word cap
+        # Adaptive serving palette: learned from the first v1 batch's run
+        # colours, relearned by demoting to v1 for one batch when the
+        # literal fraction drifts too high.
+        self._pal_table: Optional[np.ndarray] = None
+        self._pal_dev: Optional[torch.Tensor] = None
+        self._pal_cooldown = 0  # v2 batches before a relearn may trigger
         self._persist_tables: dict = {}   # scale -> (ProfileTable, PatternTable)
         self._patterns_dev: dict = {}     # scale -> (n_tiles_in_table, tensor)
+        self._profiles_dev: dict = {}     # scale -> (n_rows, rows, totals)
+        self._canvas_dev: Optional[torch.Tensor] = None
         self._empty_chunks: dict = {}     # ts -> TileChunks (PAD-only)
+        # Device-resident chunk arena, tied to the chunk cache's lifecycle.
+        self.chunk_arena = (
+            ChunkArena(device=self.device) if arena and chunk_cache_tiles else None
+        )
+        # Batches by path, and bytes read back: the wires, and the raw
+        # planar batches they stand for (the server logs both).
+        self.batch_counts = {"arena": 0, "plain": 0, "v1": 0, "v2": 0, "raw": 0}
+        self.readback_bytes = {"wire": 0, "planar": 0}
         self.icon_cache = None
         if stylesheet_dir is not None:
             from osm_renderer_tpu.draw.labels.icons import IconCache
@@ -79,10 +148,12 @@ class BatchRenderer:
         ts_px = 256 * scale
         profiles, patterns = self._tables_for(scale)
         tile_chunks = []
+        tile_keys = []
         fallback = []
         cache_on = bool(self.chunk_cache_tiles)
         for idx, (entities, tile) in enumerate(tiles_entities):
             key = (tile.zoom, tile.x, tile.y, scale)
+            tile_keys.append(key)
             if cache_on:
                 with self._cache_lock:
                     hit = self._chunk_cache.get(key)
@@ -113,7 +184,9 @@ class BatchRenderer:
                 with self._cache_lock:
                     self._chunk_cache[key] = (chunks, has_icon_fills)
                     while len(self._chunk_cache) > self.chunk_cache_tiles:
-                        self._chunk_cache.popitem(last=False)
+                        ev_key, _ = self._chunk_cache.popitem(last=False)
+                        if self.chunk_arena is not None:
+                            self.chunk_arena.free(ev_key)
                 if len(patterns.tiles) > self.MAX_PERSISTED_PATTERNS:
                     # The rest of this batch renders with the (still
                     # consistent) local tables; nothing more may enter the
@@ -136,7 +209,18 @@ class BatchRenderer:
                 empty = L.build_tile_chunks(prim_mod.TileStream(), ts_px)
                 self._empty_chunks[ts_px] = empty
             tile_chunks.extend([empty] * (bucket - len(tile_chunks)))
+            tile_keys.extend([("__pad__", ts_px)] * (bucket - len(tile_keys)))
             n_tiles = bucket
+        if self.chunk_arena is not None and cache_on:
+            try:
+                return self._finalize_arena(
+                    tile_chunks, tile_keys, profiles, patterns, ts_px, n_tiles, fallback,
+                    scale,
+                )
+            except MemoryError:
+                # Arena exhausted: rebuild lazily; this batch takes the
+                # plain upload path.
+                self.chunk_arena.clear()
         pb = L.concat_pallas_batch(tile_chunks, profiles, ts_px, patterns)
         pat_dev = None
         if cache_on:
@@ -154,10 +238,51 @@ class BatchRenderer:
         )
         return PreparedBatch(batch, canvas, ts_px, n_tiles, tuple(fallback))
 
+    def _finalize_arena(
+        self, tile_chunks, tile_keys, profiles, patterns, ts_px, n_tiles, fallback, scale,
+    ) -> PreparedBatch:
+        """Arena-path batch finalize: insert fresh tiles' big chunk fields
+        into the device arena (one upload), pack the per-chunk scalars and
+        gather rows into the small host buffer."""
+        arena = self.chunk_arena
+        arena.insert(list(zip(tile_keys, tile_chunks)))
+        offsets = [arena.offset(k) for k in tile_keys]
+        packed, it_width = L.pack_small_arena(tile_chunks, offsets)
+
+        ver = len(profiles.rows)
+        got = self._profiles_dev.get(scale)
+        if got is None or got[0] != ver:
+            rows, tots = profiles.arrays(np.float32)
+            got = (ver, torch.from_numpy(rows).to(self.device),
+                   torch.from_numpy(tots).to(self.device))
+            self._profiles_dev[scale] = got
+        _, prof_dev, tot_dev = got
+
+        pver = len(patterns.tiles)
+        gp = self._patterns_dev.get(scale)
+        if gp is None or gp[0] != pver:
+            if patterns.tiles:
+                pat_arr = patterns.array()
+            else:
+                pat_arr = np.zeros((1, 4, ts_px, ts_px), dtype=np.float32)
+            gp = (pver, torch.from_numpy(np.ascontiguousarray(pat_arr)).to(self.device))
+            self._patterns_dev[scale] = gp
+
+        return PreparedBatch(
+            None, self._canvas_tensor(), ts_px, n_tiles, tuple(fallback),
+            arena_packed=packed, arena_it=it_width,
+            arena_ctx=(arena, prof_dev, tot_dev, gp[1], arena.generation),
+        )
+
     def _canvas(self) -> np.ndarray:
         canvas = self.styler.canvas_fill_color
         rgb = [canvas.r, canvas.g, canvas.b] if canvas is not None else [0, 0, 0]
         return np.array(rgb, dtype=np.float32) / np.float32(255.0)
+
+    def _canvas_tensor(self) -> torch.Tensor:
+        if self._canvas_dev is None:
+            self._canvas_dev = torch.from_numpy(self._canvas()).to(self.device)
+        return self._canvas_dev
 
     def _check_coords(self, geom) -> None:
         max_coord = int(np.abs(geom).max()) if geom.size else 0
@@ -186,35 +311,201 @@ class BatchRenderer:
             self._chunk_cache.clear()
             self._persist_tables.clear()
             self._patterns_dev.clear()
+            self._profiles_dev.clear()
+            if self.chunk_arena is not None:
+                self.chunk_arena.clear()
 
     def render_prepared_planar(self, prepared: PreparedBatch) -> torch.Tensor:
         """(T, 4, ts, ts) u8 on the device, not synchronised."""
-        return RC.render_batch_planar(prepared.batch, prepared.canvas_rgb, prepared.ts)
+        if prepared.arena_packed is not None:
+            arena, prof_dev, tot_dev, pat_dev, gen = prepared.arena_ctx
+            if gen != arena.generation:
+                # The arena was cleared between prepare and render (cache
+                # reset); offsets are stale.  ValueError routes the server
+                # to its per-batch CPU fallback.
+                raise ValueError("chunk arena reset between prepare and render")
+            out = RC.render_arena_planar(
+                prepared.arena_packed, arena, prof_dev, tot_dev, pat_dev,
+                prepared.canvas_rgb, prepared.ts, prepared.chunk, prepared.arena_it,
+            )
+            self.batch_counts["arena"] += 1
+            return out
+        out = RC.render_batch_planar(prepared.batch, prepared.canvas_rgb, prepared.ts)
+        self.batch_counts["plain"] += 1
+        return out
 
     def render_prepared(self, prepared: PreparedBatch) -> torch.Tensor:
         """(T, ts, ts, 3) u8 view of the planar output."""
         return self.render_prepared_planar(prepared)[:, :3].permute(0, 2, 3, 1)
 
+    # ------------------------------------------------------------- wire --
+
+    def _pick_rtot(self, ts: int, T: int) -> int:
+        """v1 wire capacity (total runs) for a (tile size, batch size)
+        signature: adapted from the last observed total, generous cold
+        default (overflow costs one raw planar batch fetch)."""
+        got = self._rtot_by_key.get((ts, T))
+        if got is not None:
+            return got
+        return L.next_bucket(T * 12 * 1024, 4096)
+
+    def _note_total_runs(self, ts: int, T: int, total: int) -> None:
+        want = L.next_bucket(max(int(total * 1.25), T * 1024), 4096)
+        cur = self._rtot_by_key.get((ts, T))
+        # Hysteresis, as the JAX package keeps it: grow monotonically;
+        # shrink only on a clear regime change (>= 2x smaller).
+        if cur is not None and want <= cur and want * 2 > cur:
+            return
+        self._rtot_by_key[(ts, T)] = want
+
+    def _pick_wtot(self, ts: int, T: int) -> int:
+        """v2 wire capacity (16-bit words, stored as i32 pairs); seeded
+        from the observed run cap when available."""
+        got = self._wtot_by_key.get((ts, T))
+        if got is not None:
+            return got
+        seed = self._rtot_by_key.get((ts, T))
+        if seed is not None:
+            return L.next_bucket(seed * 2, 8192)
+        return L.next_bucket(T * 16 * 1024, 8192)
+
+    def _note_total_words(self, ts: int, T: int, total: int) -> None:
+        want = L.next_bucket(max(int(total * 1.25), T * 2048), 8192)
+        cur = self._wtot_by_key.get((ts, T))
+        if cur is not None and want <= cur and want * 2 > cur:
+            return
+        self._wtot_by_key[(ts, T)] = want
+
+    def render_prepared_rle(self, prepared: PreparedBatch) -> RleRendered:
+        """Render, then run-length encode on the device: the v2 wire once
+        a serving palette is learned (from the first v1 batch), else v1.
+        Not synchronised."""
+        T = prepared.chunk
+        planar = self.render_prepared_planar(prepared)
+        if self._pal_dev is not None:
+            wcap = self._pick_wtot(prepared.ts, T)
+            wire = RLE.encode_wire_indexed(planar, wcap, self._pal_dev)
+            self.batch_counts["v2"] += 1
+            return RleRendered(planar, wire, prepared.ts, wcap, "v2")
+        cap = self._pick_rtot(prepared.ts, T)
+        wire = RLE.encode_batch_wire(planar, cap)
+        self.batch_counts["v1"] += 1
+        return RleRendered(planar, wire, prepared.ts, cap)
+
+    def fetch_tile_view(self, res: RleRendered) -> "RleTileView":
+        """Host fetch of the wire as a lazy per-tile view: tiles decode to
+        RGB on demand, and v2 tiles can skip RGB entirely and emit a
+        palette PNG straight from the words (`RleTileView.png8`).  Falls
+        back to the raw planar fetch when the batch overflowed the wire's
+        cap (and grows the next cap)."""
+        if res.copied is not None:
+            res.copied.synchronize()
+            wire = res.host.numpy()
+        else:
+            wire = res.wire.cpu().numpy()
+        self.readback_bytes["wire"] += wire.nbytes
+        self.readback_bytes["planar"] += res.planar.numel()
+        T = int(wire[0])
+        total = int(wire[1])
+        ts = res.ts
+        if res.fmt == "v2":
+            total_runs = int(wire[2])
+            if total > res.rtot:
+                # A run emits at most 3 words, so 3 * total_runs is a
+                # sound bound for the next cap.
+                self._note_total_words(ts, T, min(total, 3 * max(total_runs, 1)))
+                return self._raw_view(res)
+            self._note_total_words(ts, T, total)
+            n_words = wire[3 : 3 + T]
+            table = wire[3 + T : 3 + T + rle_layout.PAL_CAP]
+            packed32 = wire[3 + T + rle_layout.PAL_CAP :]
+            offs = np.zeros(T + 1, np.int64)
+            np.cumsum(n_words, out=offs[1:])
+            # Palette drift: too many literal escapes -> relearn by
+            # demoting the next batch to v1 (its fetch rebuilds the table
+            # from full run colours).  Cooldown-gated, so a corpus whose
+            # tail colours exceed the palette does not flip every batch.
+            self._pal_cooldown -= 1
+            lit_runs = (total - total_runs) // 2
+            if total_runs and lit_runs * 100 > total_runs * 45 and self._pal_cooldown <= 0:
+                self._pal_table = None
+                self._pal_dev = None
+            return RleTileView(T, ts, words=(packed32, offs, table))
+        self._note_total_runs(ts, T, total)
+        if total > res.rtot:
+            return self._raw_view(res)
+        n_runs = wire[2 : 2 + T]
+        packed = wire[2 + T :]
+        offs = np.zeros(T + 1, np.int64)
+        np.cumsum(n_runs, out=offs[1:])
+        # Learn the serving palette from this batch's run colours; the
+        # next batch ships indexed.
+        if self._pal_table is None and total > 0:
+            colors, counts = np.unique(packed[:total] & 0xFFFFFF, return_counts=True)
+            self._pal_table = rle_layout.build_palette(colors, counts)
+            self._pal_dev = torch.from_numpy(self._pal_table).to(self.device)
+            self._pal_cooldown = 16
+        return RleTileView(T, ts, runs=(packed, offs))
+
+    def _raw_view(self, res: RleRendered) -> "RleTileView":
+        """Overflow fallback, as the JAX package does it: read the raw
+        planar batch back."""
+        self.batch_counts["raw"] += 1
+        rgb = L.planar_to_rgb(res.planar.cpu().numpy())
+        return RleTileView(rgb.shape[0], res.ts, rgb=rgb)
+
+    def fetch_rgb_rle(self, res: RleRendered) -> np.ndarray:
+        """Host fetch + decode of the wire -> (T, ts, ts, 3) u8."""
+        view = self.fetch_tile_view(res)
+        out = np.empty((view.T, view.ts, view.ts, 3), np.uint8)
+        for i in range(view.T):
+            out[i] = view.rgb(i)
+        return out
+
 
 class RleTileView:
-    """Per-tile view of a fetched batch.  The port reads batches back raw,
-    so only the RGB form exists; `png8` always defers to the RGB path."""
+    """Per-tile view of one fetched wire.
 
-    def __init__(self, T: int, ts: int, rgb: np.ndarray):
+    Exactly one of `rgb` (raw fallback batch), `words` (v2: packed32,
+    word offsets, palette table) or `runs` (v1: packed runs, run offsets)
+    is set.  `rgb(i)` decodes tile i; `png8(i, level)` emits a palette
+    PNG straight from the v2 words (None when the tile needs the RGB
+    path).  Decoding uses the native decoders of `draw/png_writer.py`
+    where they are built; a v2 tile decodes through the vectorised
+    `rle_layout.decode_words_numpy` where they are not."""
+
+    def __init__(self, T: int, ts: int, rgb=None, words=None, runs=None):
         self.T = T
         self.ts = ts
         self._rgb = rgb
+        self._words = words
+        self._runs = runs
 
     def rgb(self, i: int) -> np.ndarray:
-        return self._rgb[i]
+        if self._rgb is not None:
+            return self._rgb[i]
+        ts = self.ts
+        if self._words is not None:
+            packed32, offs, table = self._words
+            decode = (png_writer.rle_decode_words if png_writer._get_native() is not None
+                      else rle_layout.decode_words_numpy)
+            return decode(packed32, int(offs[i]), int(offs[i + 1] - offs[i]), table, ts, ts)
+        packed, offs = self._runs
+        return png_writer.rle_decode_packed(packed[int(offs[i]) : int(offs[i + 1])], ts, ts)
 
     def png8(self, i: int, level: int) -> Optional[bytes]:
-        return None
+        if self._words is None:
+            return None
+        packed32, offs, table = self._words
+        return png_writer.words_to_png_pal(
+            packed32, int(offs[i]), int(offs[i + 1] - offs[i]), table, self.ts, self.ts, level,
+        )
 
 
 def pad_batch_to(tiles: int, prepared: PreparedBatch) -> PreparedBatch:
     """Pad the batch's tile axis to `tiles` with empty tiles (each renders
-    the canvas): a fixed batch shape for callers that want one."""
+    the canvas): a fixed batch shape for callers that want one.  Plain
+    upload batches only."""
     T = prepared.batch.tile_range.shape[0]
     if T >= tiles:
         return prepared

@@ -4,14 +4,17 @@ The port's device backend, with the URL contract and serving loop of
 `osm_renderer_tpu.server.http`: an async micro-batcher groups concurrent
 tile requests, `render_tiles_device` folds them per scale into batches
 (cold-heavy groups stream in pipelined sub-batches; chunk-dense groups
-halve on MAX_BATCH_CHUNKS), and each tile is encoded to PNG with its
-labels composited on the host.
+halve on MAX_BATCH_CHUNKS).  A batch renders from the chunk arena
+(unless `osm_ids` is set), is run-length encoded on the device and
+crosses to the host as one wire array.  Unlabeled tiles ship as PNG-8
+straight from the v2 wire where the native encoder is built; the others
+decode to RGB, get their labels composited on the host, and encode.
 
 The original module cannot be imported where fontTools is missing (it
 imports the labeler at module level, and the labeler needs fontTools),
 so this module carries its own copy of that loop, cut to one device and
-to the raw planar readback: the render kernel is the only kernel on
-this path.  The labeler is imported only when labels are enabled.
+to host label compositing.  The labeler is imported only when labels
+are enabled.
 """
 
 from __future__ import annotations
@@ -22,16 +25,17 @@ import time
 from collections import OrderedDict
 from typing import Dict, List, Optional, Set, Tuple
 
-import torch
-
 from osm_renderer_tpu import perfstats
 from osm_renderer_tpu.core.tile import MAX_ZOOM, Tile
 from osm_renderer_tpu.draw.drawer import CpuDrawer
 from osm_renderer_tpu.draw.png_writer import rgb_to_png
 from osm_renderer_tpu.geodata.reader import GeodataReader
 from osm_renderer_tpu.mapcss.styler import Styler
-from osm_renderer_tpu_torch.ops.chunk_layout import planar_to_rgb
-from osm_renderer_tpu_torch.parallel.renderer import BatchRenderer, RleTileView
+from osm_renderer_tpu_torch.parallel.renderer import (
+    BatchRenderer,
+    start_wire_copy,
+    wait_executed,
+)
 from osm_renderer_tpu_torch.utils.torch_setup import build_native_host_libs, resolve_device
 
 
@@ -115,20 +119,26 @@ class TileService:
         self.batch_renderer = BatchRenderer(
             styler, stylesheet_dir=stylesheet_dir, tile_bucket=True,
             chunk_cache_tiles=0 if osm_ids else 512, device=self.device,
+            # Device-resident chunk arena: warm batches assemble on the
+            # device from one packed upload.
+            arena=not osm_ids,
         )
 
     def warmup(self, n_tiles: int = 16) -> int:
         """Render up to `n_tiles` real z15 tiles through the full device
-        path before accepting traffic (builds the kernel, fills the chunk
-        and label caches).  Failures raise."""
+        path before accepting traffic, twice: the first pass builds the
+        kernels, fills the chunk and label caches and learns the serving
+        palette from its v1 wire; the second takes the v2 wire.
+        Failures raise."""
         if not len(self.reader.tiles):
             return 0
         xs = self.reader.tiles["x"] >> 3
         ys = self.reader.tiles["y"] >> 3
         seen = list(dict.fromkeys(zip(xs.tolist(), ys.tolist())))[:n_tiles]
-        self.render_tiles_device([(Tile(15, x, y), 1) for x, y in seen])
-        with self._png_cache_lock:
-            self._png_cache.clear()
+        for _ in range(2):
+            self.render_tiles_device([(Tile(15, x, y), 1) for x, y in seen])
+            with self._png_cache_lock:
+                self._png_cache.clear()
         return len(seen)
 
     def png_cache_get(self, tile: Tile, scale: int) -> Optional[bytes]:
@@ -158,24 +168,26 @@ class TileService:
         return drawer
 
     def _dispatch_group_device(self, tiles_entities, scale: int, t_prep0: float):
-        """Prepare + launch, without waiting for the device."""
+        """Prepare, launch the kernels and queue the wire's copy to the
+        host, without waiting for the device."""
         prepared = self.batch_renderer.prepare(tiles_entities, scale)
         prep_dt = time.perf_counter() - t_prep0
         t0 = time.perf_counter()
-        planar = self.batch_renderer.render_prepared_planar(prepared)
-        return (planar, set(prepared.cpu_fallback_tiles), prep_dt, t0)
+        res = start_wire_copy(self.batch_renderer.render_prepared_rle(prepared))
+        return (res, set(prepared.cpu_fallback_tiles), prep_dt, t0)
 
     def _collect_group_device(self, pending):
-        """Wait for a dispatched batch and read it back raw:
-        (view, needs_cpu, prep_dt, exec_dt, d2h_dt)."""
-        planar, needs_cpu, prep_dt, t0 = pending
-        if planar.is_cuda:
-            torch.cuda.synchronize(planar.device)
+        """Wait for a dispatched batch and fetch its wire:
+        (view, needs_cpu, prep_dt, exec_dt, d2h_dt).  Execute (dispatch
+        to kernels done) and readback (wire copy and parse, or the raw
+        planar fetch on overflow) are separate spans."""
+        res, needs_cpu, prep_dt, t0 = pending
+        wait_executed(res)
         exec_dt = time.perf_counter() - t0
         t1 = time.perf_counter()
-        rgb = planar_to_rgb(planar.cpu().numpy())
+        view = self.batch_renderer.fetch_tile_view(res)
         d2h_dt = time.perf_counter() - t1
-        return RleTileView(rgb.shape[0], rgb.shape[1], rgb=rgb), needs_cpu, prep_dt, exec_dt, d2h_dt
+        return view, needs_cpu, prep_dt, exec_dt, d2h_dt
 
     def render_tiles_device(self, requests: List[Tuple[Tile, int]]) -> List[bytes]:
         """Batched device render; one dispatch per scale group (tiles the
@@ -278,7 +290,7 @@ class TileService:
                     view, needs_cpu, prep_dt, exec_dt, d2h_dt) -> None:
         n = len(sub_group)
         for gi, ((i, t), (entities, _)) in enumerate(zip(sub_group, sub_te)):
-            # One kernel renders the whole sub-batch, so device phases are
+            # The device renders the whole sub-batch at once, so its phases are
             # attributed to its tiles as equal shares of measured spans.
             perfstats.start_tile(t.zoom)
             perfstats.add_span("Get tile entities (batch share)", ent_share)
@@ -292,12 +304,21 @@ class TileService:
                         entities = self.reader.get_entities_in_tile_with_neighbors(
                             t, self.osm_ids)
                     img = self._cpu_drawer().draw_to_pixels(entities, t, scale, self.styler)
+                    out[i] = rgb_to_png(img, self.png_level)
                 else:
-                    img = view.rgb(gi)
-                    if sub_compacts is not None and sub_compacts[gi] is not None:
-                        img = self.labeler.composite_labels(
-                            img, entities, t, float(scale), self.styler)
-                out[i] = rgb_to_png(img, self.png_level)
+                    compact = sub_compacts[gi] if sub_compacts is not None else None
+                    png = None
+                    if compact is None:
+                        # Unlabeled: PNG-8 straight from the v2 wire when
+                        # the tile's colours fit the wire's palette.
+                        png = view.png8(gi, self.png_level)
+                    if png is None:
+                        img = view.rgb(gi)
+                        if compact is not None:
+                            img = self.labeler.composite_labels(
+                                img, entities, t, float(scale), self.styler)
+                        png = rgb_to_png(img, self.png_level)
+                    out[i] = png
             self._png_cache_put(t, scale, out[i])
             with self._perf_lock:
                 perfstats.finish_tile(self.perf_stats)

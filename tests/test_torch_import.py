@@ -15,6 +15,9 @@ PORT_MODULES = [
     "osm_renderer_tpu_torch.ops.chunk_layout",
     "osm_renderer_tpu_torch.ops.build",
     "osm_renderer_tpu_torch.ops.render_cuda",
+    "osm_renderer_tpu_torch.ops.rle_layout",
+    "osm_renderer_tpu_torch.ops.rle_cuda",
+    "osm_renderer_tpu_torch.parallel.arena",
     "osm_renderer_tpu_torch.draw.native_assembler",
     "osm_renderer_tpu_torch.parallel.renderer",
     "osm_renderer_tpu_torch.server.http",

@@ -1,7 +1,8 @@
-"""The port's served path on the CPU (the render kernel's plain twin)
+"""The port's served path on the CPU (the kernels' plain versions)
 against the JAX package's device server (Pallas interpret) on the mini
 fixture: decoded tiles within 1/255 per channel, split batches equal to
-solo renders, and the HTTP front end end to end."""
+solo renders, the run-length wire (v1, v2 and the raw planar fallback)
+equal to the raw batch, and the HTTP front end end to end."""
 
 import asyncio
 import io
@@ -72,10 +73,16 @@ def test_port_server_matches_jax_device_server(mini_bin, styler):
     ref.batch_renderers = [ref.batch_renderer]
     got = port.render_tiles_device([(t, 1) for t in tiles])
     want = ref.render_tiles_device([(t, 1) for t in tiles])
+    # The first batch learned the palette (v1 wire); the second, warm
+    # from the chunk arena, ships on the v2 wire.
+    got_v2 = port.render_tiles_device([(t, 1) for t in tiles])
+    counts = port.batch_renderer.batch_counts
+    assert counts["arena"] == 2 and counts["v1"] == 1 and counts["v2"] == 1, counts
     labeled = 0
-    for t, p_g, p_w in zip(tiles, got, want):
-        d = np.abs(_rgb(p_g).astype(int) - _rgb(p_w).astype(int))
-        assert d.max() <= 1, (t, d.max())
+    for t, p_g, p_v2, p_w in zip(tiles, got, got_v2, want):
+        for png in (p_g, p_v2):
+            d = np.abs(_rgb(png).astype(int) - _rgb(p_w).astype(int))
+            assert d.max() <= 1, (t, d.max())
         labeled += port.labeler.has_cached_layer(t, 256)
     assert labeled, "no tile carried labels"
     html = port.perf_stats.to_html()
@@ -243,3 +250,123 @@ def test_port_cli_serves_and_reports_launches(mini_bin, tmp_path):
     text = log.read_text()
     assert "Warmed 1 tiles" in text
     assert "render kernel launches while serving: 0" in text
+
+
+def _wire_renderer(styler):
+    from osm_renderer_tpu_torch.parallel.renderer import BatchRenderer
+
+    return BatchRenderer(styler, stylesheet_dir=STYLESHEET_DIR, chunk_cache_tiles=16,
+                         device="cpu", arena=True)
+
+
+def _tiles_entities(mini_bin):
+    from osm_renderer_tpu.geodata.reader import GeodataReader
+
+    reader = GeodataReader.load(mini_bin)
+    return [(reader.get_entities_in_tile_with_neighbors(t), t) for t in _zoom_tiles()[2:]]
+
+
+def test_port_renderer_v1_then_v2_serving_equality(mini_bin, styler):
+    """The renderer learns the palette from its first (v1) fetch and
+    ships the next batches on the v2 wire; both decode to the raw planar
+    bytes (the counterpart of test_rle.py's
+    test_renderer_v1_then_v2_serving_equality)."""
+    from osm_renderer_tpu_torch.ops.chunk_layout import planar_to_rgb
+
+    dev = _wire_renderer(styler)
+    te = _tiles_entities(mini_bin)
+    res1 = dev.render_prepared_rle(dev.prepare(te, 1))
+    assert res1.fmt == "v1"
+    ref = planar_to_rgb(res1.planar.numpy())
+    np.testing.assert_array_equal(dev.fetch_rgb_rle(res1), ref)
+    assert dev._pal_dev is not None  # palette learned
+    res2 = dev.render_prepared_rle(dev.prepare(te, 1))
+    assert res2.fmt == "v2"
+    np.testing.assert_array_equal(dev.fetch_rgb_rle(res2), ref)
+    assert dev.readback_bytes["wire"] < dev.readback_bytes["planar"]
+
+
+def test_port_forced_small_cap_falls_back_to_raw(mini_bin, styler):
+    """A cap too small for the batch: the raw planar fallback serves the
+    same pixels, and the next cap regrows (v1 and v2)."""
+    from osm_renderer_tpu_torch.ops.chunk_layout import planar_to_rgb
+
+    dev = _wire_renderer(styler)
+    te = _tiles_entities(mini_bin)
+    T = len(te)
+    dev._rtot_by_key[(256, T)] = 64
+    res = dev.render_prepared_rle(dev.prepare(te, 1))
+    assert res.fmt == "v1" and res.rtot == 64
+    ref = planar_to_rgb(res.planar.numpy())
+    np.testing.assert_array_equal(dev.fetch_rgb_rle(res), ref)
+    assert dev._rtot_by_key[(256, T)] > 64
+    assert dev._pal_dev is None  # no palette from an overflowed wire
+    dev.fetch_rgb_rle(dev.render_prepared_rle(dev.prepare(te, 1)))  # learns it
+    dev._wtot_by_key[(256, T)] = 256
+    res = dev.render_prepared_rle(dev.prepare(te, 1))
+    assert res.fmt == "v2" and res.rtot == 256
+    np.testing.assert_array_equal(dev.fetch_rgb_rle(res), ref)
+    assert dev._wtot_by_key[(256, T)] > 256  # cap regrew
+    assert dev.batch_counts["raw"] == 2
+    res = dev.render_prepared_rle(dev.prepare(te, 1))
+    np.testing.assert_array_equal(dev.fetch_rgb_rle(res), ref)
+    assert dev.batch_counts["raw"] == 2
+
+
+def test_port_server_without_native_decoder(mini_bin, styler, monkeypatch):
+    """Where the native PNG library is missing, v2 tiles decode through the
+    vectorised decoder (never png_writer's per-word loop) and ship as RGB
+    PNGs with the pixels of a server that has the library."""
+    from osm_renderer_tpu.draw import png_writer
+
+    tiles = [(t, s) for t in _zoom_tiles() for s in (1, 2)]
+    with_native = TileService(mini_bin, styler, STYLESHEET_DIR, device="cpu",
+                              enable_labels=False, png_cache_tiles=0)
+    want = [with_native.render_tiles_device(tiles) for _ in range(2)][-1]
+
+    def loop_decoder(*a, **kw):
+        raise AssertionError("the per-word fallback decoder was called")
+
+    monkeypatch.setattr(png_writer, "_get_native", lambda: None)
+    monkeypatch.setattr(png_writer, "rle_decode_words", loop_decoder)
+    bare = TileService(mini_bin, styler, STYLESHEET_DIR, device="cpu", enable_labels=False,
+                       png_cache_tiles=0)
+    for _ in range(2):
+        got = bare.render_tiles_device(tiles)
+    assert bare.batch_renderer.batch_counts["v2"] >= 2
+    for (t, s), p_g, p_w in zip(tiles, got, want):
+        np.testing.assert_array_equal(_rgb(p_g), _rgb(p_w), err_msg=f"{t}@{s}x")
+
+
+def test_wire_wrappers_refuse_cuda_on_cpu_host(mini_bin, styler, monkeypatch):
+    """A CUDA request raises on a host without a usable card: the renderer
+    refuses the device, the wrappers refuse other devices, and a wrapper
+    on its kernel route raises when the kernel cannot be built or
+    launched instead of falling back to its plain version."""
+    import torch
+
+    from osm_renderer_tpu_torch.ops import rle_cuda as RLE
+    from osm_renderer_tpu_torch.ops.render_cuda import BatchLayoutError
+    from osm_renderer_tpu_torch.parallel.renderer import BatchRenderer
+
+    if torch.cuda.is_available():
+        pytest.skip("this host has a usable CUDA device")
+    with pytest.raises(RuntimeError):
+        BatchRenderer(styler, device="cuda")
+    with pytest.raises(RuntimeError):
+        TileService(mini_bin, styler, STYLESHEET_DIR, device="cuda")
+    meta = torch.empty((1, 4, 256, 256), dtype=torch.uint8, device="meta")
+    table = torch.full((255,), 0x7F7F7F7F, dtype=torch.int32, device="meta")
+    with pytest.raises(BatchLayoutError):
+        RLE.encode_batch_wire(meta, 1024)
+    with pytest.raises(BatchLayoutError):
+        RLE.encode_wire_indexed(meta, 1024, table)
+    planar = torch.zeros((1, 4, 256, 256), dtype=torch.uint8)
+    cpu_table = torch.full((255,), 0x7F7F7F7F, dtype=torch.int32)
+    monkeypatch.setattr(RLE, "_route", lambda planar: True)  # as for a CUDA tensor
+    emits, expands = RLE.EMIT_KERNEL_LAUNCHES, RLE.EXPAND_KERNEL_LAUNCHES
+    with pytest.raises(RuntimeError):
+        RLE.encode_batch_wire(planar, 1024)
+    with pytest.raises(RuntimeError):
+        RLE.encode_wire_indexed(planar, 1024, cpu_table)
+    assert (RLE.EMIT_KERNEL_LAUNCHES, RLE.EXPAND_KERNEL_LAUNCHES) == (emits, expands)
