@@ -29,18 +29,29 @@ Phases (any failure exits non-zero; no phase is skipped):
    the planar batch's pixels.  Kernel ms beside plain ms at the bigcity
    z15 and minicity @2x batches; wire bytes against raw planar bytes;
    host decode ms per tile.
+4b. The labeled arena entry (render kernel, then the device label
+   slab's blit) on the minicity z15 batch, its @2x batch and the bigcity
+   z15 halves, with label layers from the port's fontTools-free labeler;
+   every batch carries labeled tiles.  Bars: (a) byte-identical to
+   blit_planar run on the CPU over the unlabeled arena entry's output
+   with a CPU copy of the slab plane; (b) every tile within 1/255 of the
+   host composite (composite_labels) over that unlabeled output; (c)
+   alpha = 1 label cores and every pixel outside a layer's bbox
+   byte-identical to it.  Labeled-entry ms beside unlabeled-entry ms
+   and the blit's own ms, slab rows and bytes.
 5. The served path: `python -m osm_renderer_tpu_torch.cli.renderer_main`
-   with backend = device, device = cuda on the minicity, labels = yes
-   where fontTools (which the label renderer needs) is installed and
-   labels = no otherwise, under an import guard that refuses jax;
-   >= 32 distinct tiles requested
-   concurrently (z13-z17, @1x and @2x); every response HTTP 200 with a
-   valid PNG; unlabeled tiles within 1/255 of the C++ oracle (CpuDrawer);
-   while serving, the server launched the render, emit and expand
-   kernels, served at least one arena batch and one v2 wire batch.
-6. Warm served path in this process (labels off, PNG cache off): per-tile
-   spans of warm minicity z15 and bigcity z15 batches.
-7. No jax module was loaded.
+   with backend = device, device = cuda, labels = yes on the minicity,
+   under an import guard that refuses jax and fontTools; >= 32 distinct
+   tiles requested concurrently (z13-z17, @1x and @2x); every response
+   HTTP 200 with a valid PNG; unlabeled tiles within 1/255 of the C++
+   oracle (CpuDrawer), labeled tiles within 2/255 of the oracle plus the
+   host composite; while serving, the server launched the render, emit
+   and expand kernels, served at least one arena batch and one v2 wire
+   batch, and labeled at least one tile on the device.
+6. Warm served path in this process (PNG cache off): per-tile spans of
+   warm minicity z15 and bigcity z15 batches with labels off, and of
+   minicity z15 with labels on.
+7. Neither jax nor fontTools was loaded.
 
 The second-to-last line is the kernels JSON object, the last line
 {"ok": true, "device": {...}}.  Without a CUDA device, or outside a
@@ -76,13 +87,15 @@ KERNELS = {
 }
 
 # Installed in this process and in the server subprocess: any import of
-# jax fails loudly instead of loading.
+# jax, or of fontTools (so the port's own font reader is what runs, on a
+# card that has fontTools as on one that lacks it), fails loudly instead
+# of loading.
 _NO_JAX = """
 import importlib.abc, sys
 class _NoJax(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
-        if name == "jax" or name.startswith(("jax.", "jaxlib")):
-            raise ImportError("jax must not be imported by the CUDA port: " + name)
+        if name.split(".")[0] in ("jax", "jaxlib", "fontTools"):
+            raise ImportError("the CUDA port must not import " + name)
         return None
 sys.meta_path.insert(0, _NoJax())
 """
@@ -194,16 +207,20 @@ def compare_arena(name, render_arena, plain_out, rows):
     log(f"    arena entry: byte-identical, arena_ms={arena_ms:.4f}")
 
 
-def split_prepare(renderer, tiles_entities, scale):
-    """Prepared batches under MAX_BATCH_CHUNKS, halving like the server."""
+def split_prepare(renderer, tiles_entities, scale, label_layers=None):
+    """Prepared batches under MAX_BATCH_CHUNKS, halving like the server
+    -> [(prepared, its tiles_entities, its label layers)]."""
     try:
-        return [renderer.prepare(tiles_entities, scale)]
+        return [(renderer.prepare(tiles_entities, scale, label_layers=label_layers),
+                 tiles_entities, label_layers)]
     except ValueError as e:
         if "MAX_BATCH_CHUNKS" not in str(e) or len(tiles_entities) == 1:
             raise
     mid = len(tiles_entities) // 2
-    return (split_prepare(renderer, tiles_entities[:mid], scale)
-            + split_prepare(renderer, tiles_entities[mid:], scale))
+    halves = (slice(0, mid), slice(mid, None))
+    return [got for sl in halves for got in split_prepare(
+        renderer, tiles_entities[sl], scale,
+        label_layers[sl] if label_layers is not None else None)]
 
 
 def scene_batch(device, icon: bool):
@@ -299,8 +316,8 @@ def phase_kernel(device, styler, rows, kinds_seen, planars):
             batches.append((f"{city}_z13_z14", te(reader, z_tiles(reader, 13)
                                                   + z_tiles(reader, 14)), 1))
         for name, tiles_entities, scale in batches:
-            plain = split_prepare(plain_r, tiles_entities, scale)
-            arena = split_prepare(arena_r, tiles_entities, scale)
+            plain = [p for p, _, _ in split_prepare(plain_r, tiles_entities, scale)]
+            arena = [p for p, _, _ in split_prepare(arena_r, tiles_entities, scale)]
             if len(plain) != len(arena) or any(p.arena_packed is None for p in arena):
                 raise AssertionError(f"{name}: the arena renderer did not take the arena path")
             for i, (p, pa) in enumerate(zip(plain, arena)):
@@ -491,12 +508,97 @@ def _time_decode(v1, v2, rgb, ts):
                 v1_ms=v1_ms, words_per_tile=float(n_words.mean()))
 
 
+def phase_labeled(device, styler):
+    """The labeled arena entry (render kernel, then the label slab's blit)
+    on the minicity z15 batch, its @2x batch and the bigcity z15 halves,
+    with label layers from the port's labeler.  Bars: (a) byte-identical
+    to blit_planar run on the CPU over the unlabeled arena entry's output
+    with a CPU copy of the slab plane; (b) every tile within 1/255 of
+    composite_labels over that unlabeled output; (c) alpha = 1 cores and
+    pixels outside each layer's bbox byte-identical to it."""
+    import numpy as np
+    import torch
+
+    from osm_renderer_tpu.geodata.reader import GeodataReader
+    from osm_renderer_tpu_torch.draw.labels.labeler import Labeler
+    from osm_renderer_tpu_torch.parallel import label_slab as LS
+    from osm_renderer_tpu_torch.parallel.renderer import BatchRenderer
+
+    labeler = Labeler(icon_base_path=STYLESHEET_DIR, use_atlas=True, label_cache_tiles=4096)
+    for city, path in (("minicity", MINI_BIN), ("bigcity", BIG_BIN)):
+        reader = GeodataReader.load(path)
+        r = BatchRenderer(styler, stylesheet_dir=STYLESHEET_DIR, chunk_cache_tiles=1024,
+                          device=str(device), arena=True)
+        z15 = [(reader.get_entities_in_tile_with_neighbors(t), t) for t in z_tiles(reader, 15)]
+        if city == "minicity":
+            batches = [(f"{city}_z15", z15, 1), (f"{city}_z15_2x", z15[:12], 2)]
+        else:
+            mid = len(z15) // 2
+            batches = [(f"{city}_z15_half0", z15[:mid], 1), (f"{city}_z15_half1", z15[mid:], 1)]
+        for name, tiles_entities, scale in batches:
+            ts = 256 * scale
+            compacts = [labeler.ensure_layer(e, t, float(scale), styler, ts)
+                        for e, t in tiles_entities]
+            for i, (pl, te, cs) in enumerate(split_prepare(r, tiles_entities, scale, compacts)):
+                bname = f"{name}[{i}]"
+                want_labeled = tuple(k for k, c in enumerate(cs)
+                                     if c is not None and k not in pl.cpu_fallback_tiles)
+                if pl.label_rows is None or not want_labeled:
+                    raise AssertionError(f"{bname}: no labeled tile on the labeled entry")
+                if pl.device_labeled != want_labeled:
+                    raise AssertionError(f"{bname}: device-labeled tiles {pl.device_labeled}, "
+                                         f"want {want_labeled}")
+                pu = r.prepare(te, scale)
+                if pu.arena_packed is None or pu.label_rows is not None:
+                    raise AssertionError(f"{bname}: the unlabeled batch left the arena path")
+                base = r.render_prepared_planar(pu)
+                got = r.render_prepared_planar(pl)
+                torch.cuda.synchronize()
+                slab = pl.label_ctx[0]
+                lrow = LS.expand_ltriples(torch.from_numpy(pl.label_rows), ts)
+                cpu_blit = LS.blit_planar(base.cpu(), slab.plane.cpu(), lrow)
+                got_h, base_h = got.cpu(), base.cpu().numpy()
+                if not torch.equal(got_h, cpu_blit):
+                    n = int((got_h != cpu_blit).sum().item())
+                    raise AssertionError(f"{bname}: labeled entry differs from the CPU blit "
+                                         f"in {n} bytes")
+                got_h = got_h.numpy()
+                worst = 0
+                for k, ((ents, t), c) in enumerate(zip(te, cs)):
+                    if k in pl.cpu_fallback_tiles:
+                        continue
+                    b = np.ascontiguousarray(base_h[k, :3].transpose(1, 2, 0))
+                    g = np.ascontiguousarray(got_h[k, :3].transpose(1, 2, 0))
+                    want = labeler.composite_labels(b, ents, t, float(scale), styler)
+                    d = int(np.abs(g.astype(int) - want.astype(int)).max())
+                    worst = max(worst, d)
+                    if d > 1:
+                        raise AssertionError(f"{bname} tile {k}: {d}/255 off the host composite")
+                    exact = np.ones(b.shape[:2], bool)
+                    if c is not None:
+                        y0, y1, x0, x1, _, alpha = c
+                        exact[y0:y1, x0:x1] = alpha[..., 0] >= 1.0
+                    if not np.array_equal(g[exact], want[exact]):
+                        raise AssertionError(f"{bname} tile {k}: an alpha = 1 core or a pixel "
+                                             "outside the label bbox differs from the composite")
+                labeled_ms = time_ms(lambda: r.render_prepared_planar(pl))
+                plain_ms = time_ms(lambda: r.render_prepared_planar(pu))
+                lrow_dev = lrow.to(device)
+                blit_ms = time_ms(lambda: LS.blit_planar(base, slab.plane, lrow_dev))
+                rows = sum(n for _, n, _ in slab._offsets.values())
+                log(f"  {bname}: T={pl.chunk} ts={ts} labeled tiles={len(pl.device_labeled)} "
+                    f"(a) CPU blit byte-identical, (b) max |diff| vs host composite={worst}, "
+                    f"(c) cores and outside bbox exact; labeled_ms={labeled_ms:.4f} "
+                    f"unlabeled_ms={plain_ms:.4f} blit_ms={blit_ms:.4f}; slab rows={rows} "
+                    f"of cap {slab.cap} ({slab.plane.numel() * slab.plane.element_size()} bytes)")
+
+
 def fetch(url: str, timeout: float = 300.0):
     with urllib.request.urlopen(url, timeout=timeout) as resp:
         return resp.status, resp.read()
 
 
-def phase_server(styler, rows_out, labels: bool, device="cuda"):
+def phase_server(styler, rows_out, device="cuda"):
     import socket
 
     import numpy as np
@@ -514,7 +616,7 @@ def phase_server(styler, rows_out, labels: bool, device="cuda"):
         f.write(
             f"[http]\naddress = 127.0.0.1:{port}\n[geodata]\nfile = {MINI_BIN}\n"
             f"[style]\nfile = {os.path.join(STYLESHEET_DIR, 'default.mapcss')}\ntype = josm\n"
-            f"[render]\nbackend = device\ndevice = {device}\nlabels = {'yes' if labels else 'no'}\n"
+            f"[render]\nbackend = device\ndevice = {device}\nlabels = yes\n"
             "png-level = 1\n"
             "warmup = yes\n"
         )
@@ -590,15 +692,15 @@ def phase_server(styler, rows_out, labels: bool, device="cuda"):
     batches = counts.get("batches", {})
     if not batches.get("arena") or not batches.get("v2"):
         raise AssertionError(f"server served no arena batch or no v2 wire batch ({batches})")
+    if not batches.get("labeled_tiles"):
+        raise AssertionError(f"server labeled no tile on the device ({batches})")
 
-    labeler = None
-    if labels:
-        from osm_renderer_tpu.draw.labels.labeler import Labeler
+    from osm_renderer_tpu_torch.draw.labels.labeler import Labeler
 
-        labeler = Labeler(icon_base_path=STYLESHEET_DIR, use_atlas=True, label_cache_tiles=0)
+    labeler = Labeler(icon_base_path=STYLESHEET_DIR, use_atlas=True, label_cache_tiles=0)
     drawer = CpuDrawer(labeler=None, stylesheet_dir=STYLESHEET_DIR)
-    worst_unlabeled = 0
-    n_unlabeled = 0
+    worst_unlabeled = worst_labeled = 0
+    n_unlabeled = n_labeled = 0
     for (t, s), (status, png) in zip(reqs, got):
         if status != 200 or png[:8] != b"\x89PNG\r\n\x1a\n":
             raise AssertionError(f"{t}@{s}x: HTTP {status}, not a PNG")
@@ -606,21 +708,29 @@ def phase_server(styler, rows_out, labels: bool, device="cuda"):
         if img.shape != (256 * s, 256 * s, 3):
             raise AssertionError(f"{t}@{s}x: PNG of shape {img.shape}")
         ents = reader.get_entities_in_tile_with_neighbors(t)
-        if labeler is not None and labeler.ensure_layer(
-            ents, t, float(s), styler, 256 * s
-        ) is not None:
-            continue
         want = drawer.draw_to_pixels(ents, t, s, styler)
-        d = int(np.abs(img.astype(int) - want.astype(int)).max())
-        worst_unlabeled = max(worst_unlabeled, d)
-        n_unlabeled += 1
-        if d > 1:
-            raise AssertionError(f"{t}@{s}x: served tile is {d}/255 off the C++ oracle")
-    if n_unlabeled == 0:
-        raise AssertionError("no unlabeled tile to hold against the oracle")
+        if labeler.ensure_layer(ents, t, float(s), styler, 256 * s) is None:
+            d = int(np.abs(img.astype(int) - want.astype(int)).max())
+            worst_unlabeled = max(worst_unlabeled, d)
+            n_unlabeled += 1
+            bar = 1
+        else:
+            # 1/255 for the render, 1/255 for the blit's quantization.
+            want = labeler.composite_labels(want, ents, t, float(s), styler)
+            d = int(np.abs(img.astype(int) - want.astype(int)).max())
+            worst_labeled = max(worst_labeled, d)
+            n_labeled += 1
+            bar = 2
+        if d > bar:
+            raise AssertionError(f"{t}@{s}x: served tile is {d}/255 off the C++ oracle "
+                                 f"(labels composited on the host for the labeled ones)")
+    if n_unlabeled == 0 or n_labeled == 0:
+        raise AssertionError(f"{n_unlabeled} unlabeled and {n_labeled} labeled tiles served: "
+                             "both kinds are needed")
     rb = counts.get("readback bytes", {})
     log(f"  served {len(reqs)} distinct tiles in {serve_s:.2f} s: all HTTP 200 + PNG; "
-        f"{n_unlabeled} unlabeled tiles max |diff| vs oracle = {worst_unlabeled}")
+        f"{n_unlabeled} unlabeled tiles max |diff| vs oracle = {worst_unlabeled}; "
+        f"{n_labeled} labeled tiles max |diff| vs oracle + host composite = {worst_labeled}")
     log(f"  kernel launches while serving: {launches}; batches: {batches}; "
         f"readback bytes: wire {rb.get('wire')} for raw planar {rb.get('planar')}")
     rows_out["launches"] = launches
@@ -628,13 +738,15 @@ def phase_server(styler, rows_out, labels: bool, device="cuda"):
 
 def phase_inprocess(styler, device):
     """Warm served path in this process: the server's per-tile spans over
-    warm batches (labels off, PNG cache off)."""
+    warm batches (PNG cache off; labels off, and on for minicity)."""
     from osm_renderer_tpu.core.tile import Tile
     from osm_renderer_tpu.perfstats import PerfStats
     from osm_renderer_tpu_torch.server.http import TileService
 
-    for city, path, n in (("minicity", MINI_BIN, 30), ("bigcity", BIG_BIN, 32)):
-        svc = TileService(path, styler, STYLESHEET_DIR, enable_labels=False, png_cache_tiles=0,
+    for city, path, n, labels in (("minicity", MINI_BIN, 30, False),
+                                  ("bigcity", BIG_BIN, 32, False),
+                                  ("minicity", MINI_BIN, 30, True)):
+        svc = TileService(path, styler, STYLESHEET_DIR, enable_labels=labels, png_cache_tiles=0,
                           device=str(device))
         svc.warmup()
         reader = svc.reader
@@ -642,6 +754,8 @@ def phase_inprocess(styler, device):
         svc.render_tiles_device(tiles)          # cold: assembly and caps
         svc.render_tiles_device(tiles)          # the caps settle
         svc.perf_stats = PerfStats()
+        counts = svc.batch_renderer.batch_counts
+        counts.update(dict.fromkeys(counts, 0))
         reps = 5
         t0 = time.perf_counter()
         for _ in range(reps):
@@ -650,9 +764,12 @@ def phase_inprocess(styler, device):
         root = svc.perf_stats.by_zoom[15]
         count = svc.perf_stats.tile_counts[15]
         spans = {k: 1e3 * v.total / count for k, v in root.children.items()}
-        log(f"  {city} z15 x{len(tiles)} warm: {wall:.3f} ms/tile wall; per tile "
+        if labels and not counts["labeled_tiles"]:
+            raise AssertionError(f"{city}: warm labeled batches labeled no tile on the device")
+        log(f"  {city} z15 x{len(tiles)} warm, labels {'on' if labels else 'off'}: "
+            f"{wall:.3f} ms/tile wall; per tile "
             + ", ".join(f"{k} {v:.3f} ms" for k, v in spans.items())
-            + f"; batches {svc.batch_renderer.batch_counts}")
+            + f"; batches {counts}")
 
 
 def main() -> int:
@@ -717,21 +834,23 @@ def main() -> int:
             f"v1 {d['v1_ms']:.3f} ms/tile; {d['words_per_tile']:.0f} words/tile")
     del planars
 
-    import importlib.util
+    log("phase 4b: labeled arena entry (render kernel, then the label slab's blit) "
+        "(bars: (a) byte-identical to the CPU blit over the unlabeled entry, (b) <= 1/255 "
+        "of the host composite, (c) alpha = 1 cores and outside the label bbox exact)")
+    phase_labeled(device, styler)
 
-    labels = importlib.util.find_spec("fontTools") is not None
-    log(f"phase 5: served path (renderer_main, backend = device, "
-        f"labels = {'yes' if labels else 'no: fontTools is not installed'})")
+    log("phase 5: served path (renderer_main, backend = device, labels = yes)")
     served: dict = {}
-    phase_server(styler, served, labels)
+    phase_server(styler, served)
 
-    log("phase 6: warm served path in process (labels off, PNG cache off)")
+    log("phase 6: warm served path in process (PNG cache off; labels off, then on)")
     phase_inprocess(styler, device)
 
-    log("phase 7: no jax")
-    if any(m == "jax" or m.startswith("jax.") for m in sys.modules):
-        return fail("jax was imported")
-    log("  jax not in sys.modules")
+    log("phase 7: no jax, no fontTools")
+    loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "fontTools"))
+    if loaded:
+        return fail(f"imported {loaded[:5]}")
+    log("  neither jax nor fontTools in sys.modules")
 
     head = next(r for r in rows if r["name"] == "bigcity_z15[0]")
     wire_head = next(r for r in wire_rows if r["name"] == "bigcity_z15[0]")

@@ -24,7 +24,9 @@ Same INI surface as `osm_renderer_tpu.cli.renderer_main`:
 With backend = device, the server prints, when it shuts down, the
 launches of each kernel made while serving (render, run emit, palette
 expand) and the batches it served by path: arena or plain upload, and
-v1 wire, v2 wire or raw planar readback.
+v1 wire, v2 wire or raw planar readback, beside the tiles whose labels
+were blended on the device (`labeled_tiles`).  Labels need no fontTools
+on that backend; `backend = cpu` runs the original server, which does.
 """
 
 from __future__ import annotations

@@ -3,8 +3,8 @@ PyTorch twin.
 
 Counterpart of the device half of `osm_renderer_tpu.ops.render_pallas`
 (`_render_body`, `_render_jit`, `render_batch_pallas_planar`, and the
-arena entry `_arena_render_jit`).  The kernel itself is
-`csrc/render.cu`; its design notes are there.
+arena entries `_arena_render_jit` and `_arena_render_label_jit`).  The
+kernel itself is `csrc/render.cu`; its design notes are there.
 
 * `from_numpy_batch` turns the host layout (a numpy `PallasBatch` from
   `ops.chunk_layout`, the canvas colour, the profile and pattern
@@ -14,7 +14,9 @@ arena entry `_arena_render_jit`).  The kernel itself is
   the twin.  It never falls back from a CUDA tensor.
 * `render_arena_planar` builds the batch from one packed upload and a
   row gather from the device chunk arena (`parallel.arena`), then
-  renders it through `render_batch_planar`.
+  renders it through `render_batch_planar`;
+  `render_arena_planar_labeled` also blends the device label slab
+  (`parallel.label_slab`) over the output.
 * `render_batch_planar_reference` is the twin: the TPU kernel's f32 /
   int32 formulas, vectorized per chunk over the pixel windows the TPU
   kernel evaluated.  The tests hold it to Pallas interpret mode and to
@@ -30,6 +32,7 @@ import numpy as np
 import torch
 
 from osm_renderer_tpu_torch.ops import chunk_layout as L
+from osm_renderer_tpu_torch.parallel import label_slab as LS
 
 # Kernel launches made by render_batch_planar (CUDA tensors only).
 RENDER_KERNEL_LAUNCHES = 0
@@ -212,6 +215,45 @@ def render_arena_planar(
     tensors are already resident.  The arena rows are gathered by lane 15
     with `index_select`, as the JAX package gathers them in XLA outside
     its kernel, and the render kernel runs on the gathered batch."""
+    return _render_arena(packed, np.zeros(0, np.int32), arena, prof_rows, prof_total,
+                         patterns, canvas, ts, n_tiles, IT)[0]
+
+
+def render_arena_planar_labeled(
+    packed: np.ndarray, label_rows: np.ndarray, arena, prof_rows: torch.Tensor,
+    prof_total: torch.Tensor, patterns: torch.Tensor, canvas: torch.Tensor, ts: int,
+    n_tiles: int, IT: int, label_plane: torch.Tensor,
+) -> torch.Tensor:
+    """`render_arena_planar`, then the device label blit.
+
+    Counterpart of `render_pallas._arena_render_label_jit`.  `label_rows`
+    is the (T, 3) i32 (off, y0, n) slab-row map of
+    `LabelSlab.ltriples`; it rides appended to the packed buffer in the
+    batch's one upload, expands to the (T, ts) row map on the device and
+    blends the slab plane's rows over the kernel's output
+    (`parallel.label_slab.blit_planar`)."""
+    tri = np.ascontiguousarray(label_rows, dtype=np.int32)
+    if tri.shape != (n_tiles, 3):
+        raise BatchLayoutError(f"label_rows has shape {tri.shape}, want ({n_tiles}, 3)")
+    if (label_plane.device != arena.geom.device or label_plane.dtype != torch.int32
+            or label_plane.dim() != 3 or tuple(label_plane.shape[1:]) != (2, ts)):
+        raise BatchLayoutError("label_plane must be a (cap, 2, ts) int32 tensor on the arena's device")
+    off, y0, n = tri[:, 0], tri[:, 1], tri[:, 2]
+    if (np.any(n < 0) or np.any(y0 < 0) or np.any(y0 + n > ts) or np.any(off < 0)
+            or np.any(off + n > label_plane.shape[0])):
+        raise BatchLayoutError("label_rows out of range of the tile or the slab plane")
+    out, up_tri = _render_arena(packed, tri.reshape(-1), arena, prof_rows, prof_total,
+                                patterns, canvas, ts, n_tiles, IT)
+    lrow = LS.expand_ltriples(up_tri.view(n_tiles, 3), ts)
+    return LS.blit_planar(out, label_plane, lrow)
+
+
+def _render_arena(
+    packed: np.ndarray, tail: np.ndarray, arena, prof_rows, prof_total, patterns, canvas,
+    ts: int, n_tiles: int, IT: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The arena entry with an i32 `tail` riding in the same upload
+    -> (planar output, the tail on the device)."""
     packed = np.ascontiguousarray(packed, dtype=np.int32)
     if packed.ndim != 2 or packed.shape[0] != L.N_SMALL:
         raise BatchLayoutError(f"packed has shape {packed.shape}, want ({L.N_SMALL}, C)")
@@ -230,7 +272,7 @@ def render_arena_planar(
         axis=1,
     ).astype(np.int32)
     N, C = packed.shape
-    up = torch.from_numpy(np.concatenate([packed.reshape(-1), tile_range.reshape(-1)]))
+    up = torch.from_numpy(np.concatenate([packed.reshape(-1), tile_range.reshape(-1), tail]))
     up = up.to(arena.geom.device)
     pk = up[: N * C].view(N, C)
     idx = pk[15].long()
@@ -246,9 +288,9 @@ def render_arena_planar(
         # lanes 10-12 colour, 13 opacity, 14 hw: f32 bits
         chunk_f=pk[10:15].T.contiguous().view(torch.float32),
         profiles=prof_rows, prof_total=prof_total, patterns=patterns,
-        tile_range=up[N * C:].view(n_tiles, 2),
+        tile_range=up[N * C : N * C + 2 * n_tiles].view(n_tiles, 2),
     )
-    return render_batch_planar(batch, canvas, ts)
+    return render_batch_planar(batch, canvas, ts), up[N * C + 2 * n_tiles :]
 
 
 # ---------------------------------------------------------------------------

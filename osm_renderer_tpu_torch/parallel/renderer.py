@@ -8,7 +8,10 @@ device-resident arena (`parallel.arena`); otherwise the batch's chunk
 arrays are concatenated and uploaded.  The CUDA render kernel
 (`ops.render_cuda`) writes a u8 planar (T, 4, ts, ts) batch, and the run
 emit and palette expand kernels (`ops.rle_cuda`) turn it into one wire
-array that crosses to the host (`RleRendered`, `fetch_tile_view`).
+array that crosses to the host (`RleRendered`, `fetch_tile_view`).  On
+the arena path, tiles given a committed label layer have it staged in
+the device label slab (`parallel.label_slab`) and blended over the
+render before the wire is encoded (`PreparedBatch.device_labeled`).
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ from osm_renderer_tpu_torch.ops import render_cuda as RC
 from osm_renderer_tpu_torch.ops import rle_cuda as RLE
 from osm_renderer_tpu_torch.ops import rle_layout
 from osm_renderer_tpu_torch.parallel.arena import ChunkArena
+from osm_renderer_tpu_torch.parallel.label_slab import LabelSlab
 from osm_renderer_tpu_torch.utils.torch_setup import next_pow2, resolve_device
 
 
@@ -45,6 +49,11 @@ class PreparedBatch(NamedTuple):
     arena_packed: Optional[np.ndarray] = None  # (N_SMALL, C) i32 host buffer
     arena_it: int = 0                          # bucketed item width
     arena_ctx: object = None                   # (arena, prof, tot, pat, generation)
+    # Device label blit: the (T, 3) (off, y0, n) slab-row map rides in the
+    # packed upload; these tiles come back with their labels blended.
+    label_rows: Optional[np.ndarray] = None     # (T, 3) i32, or None
+    label_ctx: object = None                    # (slab, slab.generation)
+    device_labeled: tuple = ()                  # tile indices blitted on the device
 
 
 class RleRendered(NamedTuple):
@@ -131,9 +140,14 @@ class BatchRenderer:
         self.chunk_arena = (
             ChunkArena(device=self.device) if arena and chunk_cache_tiles else None
         )
-        # Batches by path, and bytes read back: the wires, and the raw
-        # planar batches they stand for (the server logs both).
-        self.batch_counts = {"arena": 0, "plain": 0, "v1": 0, "v2": 0, "raw": 0}
+        # Device label slabs, one per tile size; filled when prepare() is
+        # given label layers on the arena path.
+        self._label_slabs: dict = {}
+        # Batches by path, tiles labeled on the device, and bytes read
+        # back: the wires, and the raw planar batches they stand for (the
+        # server logs both).
+        self.batch_counts = {"arena": 0, "plain": 0, "v1": 0, "v2": 0, "raw": 0,
+                             "labeled_tiles": 0}
         self.readback_bytes = {"wire": 0, "planar": 0}
         self.icon_cache = None
         if stylesheet_dir is not None:
@@ -143,8 +157,14 @@ class BatchRenderer:
         _na.get_native()
 
     def prepare(
-        self, tiles_entities: Sequence[Tuple[object, Tile]], scale: int = 1
+        self, tiles_entities: Sequence[Tuple[object, Tile]], scale: int = 1,
+        label_layers: Optional[Sequence] = None,
     ) -> PreparedBatch:
+        """label_layers: optional per-tile compact committed label layers
+        (`Labeler.ensure_layer` results, None = unlabeled).  On the arena
+        path labeled tiles are blended on the device
+        (`PreparedBatch.device_labeled`); elsewhere the hint is ignored
+        and callers keep the host composite."""
         ts_px = 256 * scale
         profiles, patterns = self._tables_for(scale)
         tile_chunks = []
@@ -213,14 +233,16 @@ class BatchRenderer:
             n_tiles = bucket
         if self.chunk_arena is not None and cache_on:
             try:
-                return self._finalize_arena(
-                    tile_chunks, tile_keys, profiles, patterns, ts_px, n_tiles, fallback,
-                    scale,
-                )
+                self.chunk_arena.insert(list(zip(tile_keys, tile_chunks)))
             except MemoryError:
                 # Arena exhausted: rebuild lazily; this batch takes the
                 # plain upload path.
                 self.chunk_arena.clear()
+            else:
+                return self._finalize_arena(
+                    tile_chunks, tile_keys, profiles, patterns, ts_px, n_tiles, fallback,
+                    scale, label_layers,
+                )
         pb = L.concat_pallas_batch(tile_chunks, profiles, ts_px, patterns)
         pat_dev = None
         if cache_on:
@@ -240,14 +262,36 @@ class BatchRenderer:
 
     def _finalize_arena(
         self, tile_chunks, tile_keys, profiles, patterns, ts_px, n_tiles, fallback, scale,
+        label_layers=None,
     ) -> PreparedBatch:
-        """Arena-path batch finalize: insert fresh tiles' big chunk fields
-        into the device arena (one upload), pack the per-chunk scalars and
-        gather rows into the small host buffer."""
+        """Arena-path batch finalize, after the tiles' big chunk fields
+        are in the arena: pack the per-chunk scalars and gather rows into
+        the small host buffer.  Labeled tiles (not the CPU-fallback ones)
+        get their committed label layers staged in the device label slab
+        and a slab-row map for the packed upload.  A slab that cannot hold
+        the batch is cleared and filled again; a second MemoryError
+        raises."""
         arena = self.chunk_arena
-        arena.insert(list(zip(tile_keys, tile_chunks)))
         offsets = [arena.offset(k) for k in tile_keys]
         packed, it_width = L.pack_small_arena(tile_chunks, offsets)
+
+        label_rows = label_ctx = None
+        device_labeled: tuple = ()
+        labeled = [
+            (ti, tile_keys[ti], compact)
+            for ti, compact in enumerate(label_layers or ())
+            if compact is not None and ti not in fallback
+        ]
+        if labeled:
+            slab = self._label_slab(ts_px)
+            try:
+                slab.insert([(k, c) for _, k, c in labeled])
+            except MemoryError:
+                slab.clear()
+                slab.insert([(k, c) for _, k, c in labeled])
+            label_rows = slab.ltriples(n_tiles, [(ti, k) for ti, k, _ in labeled])
+            label_ctx = (slab, slab.generation)
+            device_labeled = tuple(ti for ti, _, _ in labeled)
 
         ver = len(profiles.rows)
         got = self._profiles_dev.get(scale)
@@ -272,7 +316,14 @@ class BatchRenderer:
             None, self._canvas_tensor(), ts_px, n_tiles, tuple(fallback),
             arena_packed=packed, arena_it=it_width,
             arena_ctx=(arena, prof_dev, tot_dev, gp[1], arena.generation),
+            label_rows=label_rows, label_ctx=label_ctx, device_labeled=device_labeled,
         )
+
+    def _label_slab(self, ts_px: int) -> LabelSlab:
+        got = self._label_slabs.get(ts_px)
+        if got is None:
+            got = self._label_slabs[ts_px] = LabelSlab(ts_px, device=self.device)
+        return got
 
     def _canvas(self) -> np.ndarray:
         canvas = self.styler.canvas_fill_color
@@ -314,6 +365,8 @@ class BatchRenderer:
             self._profiles_dev.clear()
             if self.chunk_arena is not None:
                 self.chunk_arena.clear()
+            for slab in self._label_slabs.values():
+                slab.clear()
 
     def render_prepared_planar(self, prepared: PreparedBatch) -> torch.Tensor:
         """(T, 4, ts, ts) u8 on the device, not synchronised."""
@@ -324,10 +377,21 @@ class BatchRenderer:
                 # reset); offsets are stale.  ValueError routes the server
                 # to its per-batch CPU fallback.
                 raise ValueError("chunk arena reset between prepare and render")
-            out = RC.render_arena_planar(
-                prepared.arena_packed, arena, prof_dev, tot_dev, pat_dev,
-                prepared.canvas_rgb, prepared.ts, prepared.chunk, prepared.arena_it,
-            )
+            if prepared.label_rows is not None:
+                slab, sgen = prepared.label_ctx
+                if sgen != slab.generation:
+                    raise ValueError("label slab reset between prepare and render")
+                out = RC.render_arena_planar_labeled(
+                    prepared.arena_packed, prepared.label_rows, arena, prof_dev, tot_dev,
+                    pat_dev, prepared.canvas_rgb, prepared.ts, prepared.chunk,
+                    prepared.arena_it, slab.plane,
+                )
+                self.batch_counts["labeled_tiles"] += len(prepared.device_labeled)
+            else:
+                out = RC.render_arena_planar(
+                    prepared.arena_packed, arena, prof_dev, tot_dev, pat_dev,
+                    prepared.canvas_rgb, prepared.ts, prepared.chunk, prepared.arena_it,
+                )
             self.batch_counts["arena"] += 1
             return out
         out = RC.render_batch_planar(prepared.batch, prepared.canvas_rgb, prepared.ts)

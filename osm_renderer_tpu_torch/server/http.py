@@ -6,15 +6,17 @@ tile requests, `render_tiles_device` folds them per scale into batches
 (cold-heavy groups stream in pipelined sub-batches; chunk-dense groups
 halve on MAX_BATCH_CHUNKS).  A batch renders from the chunk arena
 (unless `osm_ids` is set), is run-length encoded on the device and
-crosses to the host as one wire array.  Unlabeled tiles ship as PNG-8
-straight from the v2 wire where the native encoder is built; the others
-decode to RGB, get their labels composited on the host, and encode.
+crosses to the host as one wire array.  On the arena path, labeled
+tiles have their committed label layers blended on the device (the
+renderer's label slab).  Unlabeled and device-labeled tiles ship as
+PNG-8 straight from the v2 wire where the native encoder is built; the
+others decode to RGB, and labeled tiles the device did not label (plain
+upload batches under `osm_ids`) get their labels composited on the host.
 
 The original module cannot be imported where fontTools is missing (it
-imports the labeler at module level, and the labeler needs fontTools),
-so this module carries its own copy of that loop, cut to one device and
-to host label compositing.  The labeler is imported only when labels
-are enabled.
+imports the original labeler at module level, and that labeler needs
+fontTools), so this module carries its own copy of that loop, cut to one
+device, with the port's fontTools-free labeler.
 """
 
 from __future__ import annotations
@@ -105,7 +107,7 @@ class TileService:
         self.png_cache_tiles = 0 if osm_ids else png_cache_tiles
         self.labeler = None
         if enable_labels:
-            from osm_renderer_tpu.draw.labels.labeler import Labeler
+            from osm_renderer_tpu_torch.draw.labels.labeler import Labeler
 
             self.labeler = Labeler(
                 icon_base_path=stylesheet_dir, use_atlas=True,
@@ -167,27 +169,30 @@ class TileService:
             self._local.drawer = drawer
         return drawer
 
-    def _dispatch_group_device(self, tiles_entities, scale: int, t_prep0: float):
+    def _dispatch_group_device(self, tiles_entities, scale: int, t_prep0: float,
+                               compacts=None):
         """Prepare, launch the kernels and queue the wire's copy to the
-        host, without waiting for the device."""
-        prepared = self.batch_renderer.prepare(tiles_entities, scale)
+        host, without waiting for the device.  `compacts`: the tiles'
+        committed label layers, blended on the device on the arena path."""
+        prepared = self.batch_renderer.prepare(tiles_entities, scale, label_layers=compacts)
         prep_dt = time.perf_counter() - t_prep0
         t0 = time.perf_counter()
         res = start_wire_copy(self.batch_renderer.render_prepared_rle(prepared))
-        return (res, set(prepared.cpu_fallback_tiles), prep_dt, t0)
+        return (res, set(prepared.cpu_fallback_tiles), prep_dt, t0,
+                set(prepared.device_labeled))
 
     def _collect_group_device(self, pending):
         """Wait for a dispatched batch and fetch its wire:
-        (view, needs_cpu, prep_dt, exec_dt, d2h_dt).  Execute (dispatch
-        to kernels done) and readback (wire copy and parse, or the raw
-        planar fetch on overflow) are separate spans."""
-        res, needs_cpu, prep_dt, t0 = pending
+        (view, needs_cpu, prep_dt, exec_dt, d2h_dt, device_labeled).
+        Execute (dispatch to kernels done) and readback (wire copy and
+        parse, or the raw planar fetch on overflow) are separate spans."""
+        res, needs_cpu, prep_dt, t0, device_labeled = pending
         wait_executed(res)
         exec_dt = time.perf_counter() - t0
         t1 = time.perf_counter()
         view = self.batch_renderer.fetch_tile_view(res)
         d2h_dt = time.perf_counter() - t1
-        return view, needs_cpu, prep_dt, exec_dt, d2h_dt
+        return view, needs_cpu, prep_dt, exec_dt, d2h_dt, device_labeled
 
     def render_tiles_device(self, requests: List[Tuple[Tile, int]]) -> List[bytes]:
         """Batched device render; one dispatch per scale group (tiles the
@@ -243,7 +248,7 @@ class TileService:
                     t0 = time.perf_counter()
                     try:
                         pending = ("dispatched", self._dispatch_group_device(
-                            tiles_entities[sl], scale, t0))
+                            tiles_entities[sl], scale, t0, sub_compacts(sl)))
                     except ValueError as e:
                         pending = ("err", time.perf_counter() - t0, str(e))
                 if inflight is not None:
@@ -258,7 +263,7 @@ class TileService:
                         inflight = (sl, pending) if sl is not None else None
                         continue
                     else:
-                        res = (None, set(range(psl.stop - psl.start)), pp[1], None, None)
+                        res = (None, set(range(psl.stop - psl.start)), pp[1], None, None, set())
                     self._encode_sub(group[psl], tiles_entities[psl], scale, out, ent_dt / n,
                                      sub_compacts(psl), *res)
                 inflight = (sl, pending) if sl is not None else None
@@ -270,7 +275,7 @@ class TileService:
         n = len(sub_group)
         if n == 1:
             self._encode_sub(sub_group, sub_te, scale, out, ent_share, sub_compacts,
-                             None, {0}, 0.0, None, None)
+                             None, {0}, 0.0, None, None, set())
             return
         mid = n // 2
         for sl in (slice(0, mid), slice(mid, n)):
@@ -278,7 +283,7 @@ class TileService:
             t0 = time.perf_counter()
             try:
                 res = self._collect_group_device(
-                    self._dispatch_group_device(sub_te[sl], scale, t0))
+                    self._dispatch_group_device(sub_te[sl], scale, t0, sc))
             except ValueError as e:
                 if "MAX_BATCH_CHUNKS" not in str(e):
                     raise
@@ -287,7 +292,7 @@ class TileService:
             self._encode_sub(sub_group[sl], sub_te[sl], scale, out, ent_share, sc, *res)
 
     def _encode_sub(self, sub_group, sub_te, scale, out, ent_share, sub_compacts,
-                    view, needs_cpu, prep_dt, exec_dt, d2h_dt) -> None:
+                    view, needs_cpu, prep_dt, exec_dt, d2h_dt, device_labeled) -> None:
         n = len(sub_group)
         for gi, ((i, t), (entities, _)) in enumerate(zip(sub_group, sub_te)):
             # The device renders the whole sub-batch at once, so its phases are
@@ -308,13 +313,16 @@ class TileService:
                 else:
                     compact = sub_compacts[gi] if sub_compacts is not None else None
                     png = None
-                    if compact is None:
-                        # Unlabeled: PNG-8 straight from the v2 wire when
-                        # the tile's colours fit the wire's palette.
+                    if compact is None or gi in device_labeled:
+                        # Unlabeled, or labeled on the device: PNG-8
+                        # straight from the v2 wire when the tile's
+                        # colours fit the wire's palette.
                         png = view.png8(gi, self.png_level)
                     if png is None:
                         img = view.rgb(gi)
-                        if compact is not None:
+                        if compact is not None and gi not in device_labeled:
+                            # Host composite: batches without the label
+                            # slab (the plain upload under osm_ids).
                             img = self.labeler.composite_labels(
                                 img, entities, t, float(scale), self.styler)
                         png = rgb_to_png(img, self.png_level)

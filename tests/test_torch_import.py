@@ -18,6 +18,11 @@ PORT_MODULES = [
     "osm_renderer_tpu_torch.ops.rle_layout",
     "osm_renderer_tpu_torch.ops.rle_cuda",
     "osm_renderer_tpu_torch.parallel.arena",
+    "osm_renderer_tpu_torch.parallel.label_slab",
+    "osm_renderer_tpu_torch.draw.labels.font",
+    "osm_renderer_tpu_torch.draw.labels.text_placer",
+    "osm_renderer_tpu_torch.draw.labels.atlas",
+    "osm_renderer_tpu_torch.draw.labels.labeler",
     "osm_renderer_tpu_torch.draw.native_assembler",
     "osm_renderer_tpu_torch.parallel.renderer",
     "osm_renderer_tpu_torch.server.http",
@@ -26,7 +31,7 @@ PORT_MODULES = [
 ]
 
 # Refuses jax (and, for the second case, fontTools, which the GPU host
-# may lack: the device server must import without it).
+# may lack: the device server must import, and label a tile, without it).
 _GUARD = """
 import importlib, importlib.abc, sys
 BLOCKED = {blocked!r}
@@ -39,21 +44,47 @@ sys.meta_path.insert(0, Guard())
 sys.path.insert(0, {root!r})
 for m in {modules!r}:
     importlib.import_module(m)
+{label}
 assert not [m for m in sys.modules if m.split(".")[0] in BLOCKED]
 print("IMPORTED", len({modules!r}))
+"""
+
+# The port's labeler places the mini fixture's labels (a z16 tile that
+# carries some) with the guard still in place.
+_LABEL = """
+import tempfile
+from osm_renderer_tpu.core.tile import Tile, coords_to_max_zoom_tile
+from osm_renderer_tpu.mapcss.parser import parse_file
+from osm_renderer_tpu.mapcss.styler import Styler
+from osm_renderer_tpu_torch.draw.labels.labeler import Labeler
+from tests.fixtures import build_mini_reader
+sheets = {sheets!r}
+reader = build_mini_reader(tempfile.mkdtemp())
+styler = Styler(parse_file(sheets, "default.mapcss"), "josm")
+t18 = coords_to_max_zoom_tile(47.1412, 9.5215)
+tile = Tile(16, t18.x >> 2, t18.y >> 2)
+ents = reader.get_entities_in_tile_with_neighbors(tile)
+compact = Labeler(icon_base_path=sheets).ensure_layer(ents, tile, 1.0, styler, 256)
+assert compact is not None and compact[5].max() > 0, "no label placed"
+print("LABELED", compact[1] - compact[0], "rows")
 """
 
 
 @pytest.mark.parametrize("blocked", [("jax", "jaxlib"), ("jax", "jaxlib", "fontTools")],
                          ids=["no_jax", "no_jax_no_fonttools"])
 def test_port_imports_without_jax(blocked):
-    code = _GUARD.format(blocked=set(blocked), root=REPO_ROOT, modules=PORT_MODULES)
+    label = ""
+    if "fontTools" in blocked:
+        label = _LABEL.format(sheets=os.path.join(REPO_ROOT, "assets", "stylesheets"))
+    code = _GUARD.format(blocked=set(blocked), root=REPO_ROOT, modules=PORT_MODULES,
+                         label=label)
     env = dict(os.environ)
     env.pop("XLA_FLAGS", None)
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO_ROOT, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert f"IMPORTED {len(PORT_MODULES)}" in proc.stdout
+    assert ("LABELED" in proc.stdout) == ("fontTools" in blocked)
 
 
 def test_resolve_device_never_falls_back():

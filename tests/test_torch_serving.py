@@ -1,8 +1,10 @@
 """The port's served path on the CPU (the kernels' plain versions)
 against the JAX package's device server (Pallas interpret) on the mini
-fixture: decoded tiles within 1/255 per channel, split batches equal to
-solo renders, the run-length wire (v1, v2 and the raw planar fallback)
-equal to the raw batch, and the HTTP front end end to end."""
+fixture: the same tiles labeled on the device and decoded tiles within
+1/255 per channel, host-composited labels where the batch has no label
+slab, split batches equal to solo renders, the run-length wire (v1, v2
+and the raw planar fallback) equal to the raw batch, and the HTTP front
+end end to end."""
 
 import asyncio
 import io
@@ -55,10 +57,24 @@ def _zoom_tiles():
     return [Tile(z, t18.x >> (18 - z), t18.y >> (18 - z)) for z in range(12, 18)]
 
 
+def _spy_device_labeled(renderer) -> list:
+    """Records the tiles each prepared batch labels on the device."""
+    seen = []
+    prepare = renderer.prepare
+
+    def spy(tiles_entities, scale=1, label_layers=None):
+        prepared = prepare(tiles_entities, scale, label_layers=label_layers)
+        seen.extend(tiles_entities[i][1] for i in prepared.device_labeled)
+        return prepared
+
+    renderer.prepare = spy
+    return seen
+
+
 def test_port_server_matches_jax_device_server(mini_bin, styler):
-    """Same tiles through the port (labels composited on the host) and
-    the JAX device backend (arena + device label blit, Pallas
-    interpret): <= 1/255 per channel."""
+    """Same tiles through the port and the JAX device backend (both: arena
+    and device label blit; the JAX one in Pallas interpret): the same
+    tiles labeled on the device, <= 1/255 per channel."""
     from osm_renderer_tpu.parallel.renderer import BatchRenderer as JaxBatchRenderer
     from osm_renderer_tpu.server.http import TileService as JaxTileService
 
@@ -71,13 +87,17 @@ def test_port_server_matches_jax_device_server(mini_bin, styler):
         tile_bucket=True, chunk_cache_tiles=512, arena=True,
     )
     ref.batch_renderers = [ref.batch_renderer]
+    port_labeled = _spy_device_labeled(port.batch_renderer)
+    ref_labeled = _spy_device_labeled(ref.batch_renderer)
     got = port.render_tiles_device([(t, 1) for t in tiles])
     want = ref.render_tiles_device([(t, 1) for t in tiles])
+    assert port_labeled and port_labeled == ref_labeled
     # The first batch learned the palette (v1 wire); the second, warm
     # from the chunk arena, ships on the v2 wire.
     got_v2 = port.render_tiles_device([(t, 1) for t in tiles])
     counts = port.batch_renderer.batch_counts
     assert counts["arena"] == 2 and counts["v1"] == 1 and counts["v2"] == 1, counts
+    assert counts["labeled_tiles"] == 2 * len(ref_labeled)
     labeled = 0
     for t, p_g, p_v2, p_w in zip(tiles, got, got_v2, want):
         for png in (p_g, p_v2):
@@ -87,6 +107,47 @@ def test_port_server_matches_jax_device_server(mini_bin, styler):
     assert labeled, "no tile carried labels"
     html = port.perf_stats.to_html()
     assert "Device execute (batch share)" in html and "Compose and encode" in html
+
+
+def test_port_osm_ids_batch_composites_labels_on_host(mini_bin, styler):
+    """Under osm_ids the batch takes the plain upload, which has no label
+    slab: its labeled tiles get the host composite, exactly the port's
+    labeler over the unlabeled served tile."""
+    t = _zoom_tiles()[4]
+    reader = TileService(mini_bin, styler, STYLESHEET_DIR, device="cpu").reader
+    ents = reader.get_entities_in_tile_with_neighbors(t)
+    ids = {e.global_id for e in list(ents.nodes) + ents.ways + ents.multipolygons}
+    labeled = TileService(mini_bin, styler, STYLESHEET_DIR, device="cpu", osm_ids=ids)
+    bare = TileService(mini_bin, styler, STYLESHEET_DIR, device="cpu", osm_ids=ids,
+                       enable_labels=False)
+    got = _rgb(labeled.render_tiles_device([(t, 1)])[0])
+    base = _rgb(bare.render_tiles_device([(t, 1)])[0])
+    counts = labeled.batch_renderer.batch_counts
+    assert counts["plain"] == 1 and counts["arena"] == 0 and counts["labeled_tiles"] == 0
+    want = labeled.labeler.composite_labels(
+        base, reader.get_entities_in_tile_with_neighbors(t, ids), t, 1.0, styler)
+    np.testing.assert_array_equal(got, want)
+    assert not np.array_equal(got, base)
+
+
+def test_port_slab_reset_between_prepare_and_render_raises(mini_bin, styler):
+    """Clearing the renderer's caches between prepare and render leaves a
+    labeled batch's slab rows stale: rendering it raises."""
+    port = TileService(mini_bin, styler, STYLESHEET_DIR, device="cpu")
+    tiles = _zoom_tiles()[3:]
+    te = [(port.reader.get_entities_in_tile_with_neighbors(t), t) for t in tiles]
+    compacts = [port.labeler.ensure_layer(e, t, 1.0, styler, 256) for e, t in te]
+    r = port.batch_renderer
+    prepared = r.prepare(te, 1, label_layers=compacts)
+    assert prepared.device_labeled and prepared.label_rows is not None
+    slab = prepared.label_ctx[0]
+    slab.clear()
+    with pytest.raises(ValueError, match="label slab reset between prepare and render"):
+        r.render_prepared_planar(prepared)
+    # A fresh prepare stages the layers again and renders.
+    again = r.prepare(te, 1, label_layers=compacts)
+    assert again.label_ctx[1] == slab.generation
+    assert r.render_prepared_planar(again).shape == (prepared.chunk, 4, 256, 256)
 
 
 def test_port_server_matches_oracle_at_2x(mini_bin, styler):
@@ -212,7 +273,8 @@ def test_port_http_end_to_end(mini_bin, styler):
 def test_port_cli_serves_and_reports_launches(mini_bin, tmp_path):
     """`python -m osm_renderer_tpu_torch.cli.renderer_main` with
     backend = device on the CPU twin: warm-up, serve, shut down, and
-    report the kernel launches made while serving (none on the CPU)."""
+    report the kernel launches made while serving (none on the CPU) and
+    the tiles it labeled on the device."""
     import subprocess
     import sys
 
@@ -223,7 +285,7 @@ def test_port_cli_serves_and_reports_launches(mini_bin, tmp_path):
     conf.write_text(
         f"[http]\naddress = 127.0.0.1:{port}\n[geodata]\nfile = {mini_bin}\n"
         f"[style]\nfile = {os.path.join(STYLESHEET_DIR, 'default.mapcss')}\ntype = josm\n"
-        "[render]\nbackend = device\ndevice = cpu\nlabels = no\nwarmup = yes\n"
+        "[render]\nbackend = device\ndevice = cpu\nlabels = yes\nwarmup = yes\n"
     )
     log = tmp_path / "server.log"
     with open(log, "w") as f:
@@ -250,6 +312,9 @@ def test_port_cli_serves_and_reports_launches(mini_bin, tmp_path):
     text = log.read_text()
     assert "Warmed 1 tiles" in text
     assert "render kernel launches while serving: 0" in text
+    batches = next(line for line in text.splitlines() if line.startswith("batches while"))
+    counts = dict(kv.split("=") for kv in batches.split(":", 1)[1].split())
+    assert int(counts["arena"]) >= 1 and int(counts["labeled_tiles"]) >= 1, batches
 
 
 def _wire_renderer(styler):
