@@ -9,17 +9,22 @@ Phases (any failure exits non-zero; no phase is skipped):
    versions; both kernel sources (csrc/render.cu, csrc/rle.cu) built by
    nvcc at once, with build times and ptxas reports.
 2. Fixtures: the synthetic cities (tools/make_fixture.py --blocks 24 and
-   48, then geodata.importer.import_osm) under assets/fixtures/.
+   48, then the port's geodata.importer.import_osm) under
+   assets/fixtures/.
 3. Render kernel against its plain PyTorch twin on the card, on real
    batches: every minicity z15 tile, the bigcity z15 tiles (split under
    MAX_BATCH_CHUNKS the way the server splits), @2x, @3x and @4x batches,
    a z13/z14 batch (per-segment strokes), an oversize-fill scene (host
    layers) and an icon-fill scene (pattern blend).
-   Bar: max |diff| <= 1 per channel and no pixel painted by one and not
-   the other.  Kernel time (CUDA events, mean of 5 after a warm launch)
-   beside the twin's time on the same batch.  Every batch also renders
-   through the arena entry (one packed upload, rows gathered from the
-   device chunk arena); bar: byte-identical to the plain-upload entry.
+   Bar: byte-identical (max |diff| 0, no pixel painted by one and not
+   the other).  Kernel time (CUDA events, mean of 5 after a warm launch)
+   beside the twin's time on the same batch, the batch's bound (the bytes
+   the function needs from the batch's data and writes, over 3.35 TB/s,
+   or its blend operations over 67 TFLOP/s f32, the larger) and the
+   kernel's share of it.  Every batch
+   also renders through the arena entry (one packed upload; the kernel
+   reads the device chunk arena's rows through the batch's row index);
+   bar: byte-identical to the plain-upload entry, and its ms.
 4. Wire kernels against their plain versions on the card, on every
    phase-3 planar batch: the v1 wire (run emit) and the v2 wire (run
    emit + palette expand) with a palette learned from the batch's own
@@ -41,7 +46,7 @@ Phases (any failure exits non-zero; no phase is skipped):
    and the blit's own ms, slab rows and bytes.
 5. The served path: `python -m osm_renderer_tpu_torch.cli.renderer_main`
    with backend = device, device = cuda, labels = yes on the minicity,
-   under an import guard that refuses jax and fontTools; >= 32 distinct
+   under the import guard of phase 7; >= 32 distinct
    tiles requested concurrently (z13-z17, @1x and @2x); every response
    HTTP 200 with a valid PNG; unlabeled tiles within 1/255 of the C++
    oracle (CpuDrawer), labeled tiles within 2/255 of the oracle plus the
@@ -51,7 +56,9 @@ Phases (any failure exits non-zero; no phase is skipped):
 6. Warm served path in this process (PNG cache off): per-tile spans of
    warm minicity z15 and bigcity z15 batches with labels off, and of
    minicity z15 with labels on.
-7. Neither jax nor fontTools was loaded.
+7. None of jax, jaxlib, fontTools or the JAX package osm_renderer_tpu
+   was loaded (the import guard refuses all four here and in the
+   server).
 
 The second-to-last line is the kernels JSON object, the last line
 {"ok": true, "device": {...}}.  Without a CUDA device, or outside a
@@ -86,15 +93,17 @@ KERNELS = {
                    "osm_renderer_tpu/ops/rle_pallas.py:312"),
 }
 
-# Installed in this process and in the server subprocess: any import of
-# jax, or of fontTools (so the port's own font reader is what runs, on a
-# card that has fontTools as on one that lacks it), fails loudly instead
-# of loading.
-_NO_JAX = """
+# Top-level packages the port must not load: jax, the JAX package
+# itself, and fontTools (so the port's own font reader is what runs, on a
+# card that has fontTools as on one that lacks it).
+REFUSED = ("jax", "jaxlib", "fontTools", "osm_renderer_tpu")
+# Installed in this process and in the server subprocess: any import of a
+# refused package fails loudly instead of loading.
+_NO_JAX = f"""
 import importlib.abc, sys
 class _NoJax(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
-        if name.split(".")[0] in ("jax", "jaxlib", "fontTools"):
+        if name.split(".")[0] in {REFUSED!r}:
             raise ImportError("the CUDA port must not import " + name)
         return None
 sys.meta_path.insert(0, _NoJax())
@@ -111,7 +120,7 @@ def fail(msg: str) -> int:
 
 
 def build_fixtures() -> None:
-    from osm_renderer_tpu.geodata.importer import import_osm
+    from osm_renderer_tpu_torch.geodata.importer import import_osm
 
     for osm, binf, blocks in ((MINI_OSM, MINI_BIN, 24), (BIG_OSM, BIG_BIN, 48)):
         if not os.path.exists(binf):
@@ -125,7 +134,7 @@ def build_fixtures() -> None:
 
 
 def z_tiles(reader, zoom: int):
-    from osm_renderer_tpu.core.tile import Tile
+    from osm_renderer_tpu_torch.core.tile import Tile
 
     sh = 18 - zoom
     xs = reader.tiles["x"] >> sh
@@ -157,6 +166,71 @@ def time_ms(fn, reps: int = 5) -> float:
     return ev0.elapsed_time(ev1) / reps
 
 
+# The card's published peaks (NVIDIA H100 SXM data sheet): HBM3 bytes/s
+# and float32 operations/s outside the tensor cores.
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+
+
+def render_bound(b, canvas, ts):
+    """Least time the card could take for one render batch -> (ms, "bytes"
+    or "operations", bytes, ops).
+
+    Bytes: what the function needs from this batch's data, each read
+    once, and the u8 output.  Every chunk's int header; the float header
+    of each chunk that is not padding; the column window (isec slot 0) of
+    fill and tent-lane chunks, and the section ends and the items up to
+    the last section end of work-item chunks.  Over each chunk's CI_CNT
+    live lanes only, the lane fields its kind reads: fill spans geom rows
+    0-2; tent lanes geom and aux rows 0-2; work items geom, aux rows 0-2
+    and trav (and sprof when dashed); per-segment strokes all of these.
+    The profile rows those segments name, and of each pattern the rows a
+    blend reads.  Aux row 3, padding chunks' lanes, the item columns past
+    a chunk's last section end and the dead lanes are never needed.
+
+    Operations: the src-over blends that every CI_LAST chunk applies over
+    its primitive's rows (8 f32 operations a pixel) and the finalize (7 a
+    pixel), which no evaluation order avoids."""
+    import numpy as np
+
+    from osm_renderer_tpu_torch.ops import chunk_layout as CL
+    from osm_renderer_tpu_torch.ops import render_cuda as RC
+
+    T = b.tile_range.shape[0]
+    ci = b.chunk_i.cpu().numpy()
+    isec = b.isec.cpu().numpy()
+    kind, cnt = ci[:, RC.CI_KIND], ci[:, RC.CI_CNT].astype(np.int64)
+    nbytes = ci.nbytes + 4 * RC.NCF * int((kind != CL.KIND_PAD).sum())
+    nbytes += 4 * canvas.numel() + 4 * b.tile_range.numel() + T * 4 * ts * ts
+    # Bytes of one live lane that each kind reads (geom rows, aux rows,
+    # trav, sprof; 4 bytes each).
+    lane_bytes = {CL.KIND_FILL: 12, CL.KIND_FILL_IMAGE: 12, CL.KIND_STROKE_SPAN: 28,
+                  CL.KIND_STROKE_SOLID: 32, CL.KIND_STROKE_DASH: 36, CL.KIND_STROKE: 36}
+    for k, w in lane_bytes.items():
+        nbytes += w * int(cnt[kind == k].sum())
+    windowed = np.isin(kind, (CL.KIND_FILL, CL.KIND_FILL_IMAGE, CL.KIND_STROKE_SPAN))
+    nbytes += 4 * int(windowed.sum())
+    itemized = np.isin(kind, (CL.KIND_STROKE_SOLID, CL.KIND_STROKE_DASH))
+    nbytes += 4 * CL.NSEC * int(itemized.sum()) + 4 * int(isec[itemized, -1].sum())
+    profiled = np.isin(kind, (CL.KIND_STROKE, CL.KIND_STROKE_DASH))
+    live = np.arange(CL.CH)[None, :] < cnt[:, None]
+    used = np.unique(b.sprof.cpu().numpy()[profiled[:, None] & live])
+    nbytes += int(used.size) * 4 * (CL.DS * 8 + 1)
+    last = (ci[:, RC.CI_LAST] == 1) & (kind != CL.KIND_PAD)
+    pat = ci[:, RC.CI_PAT]
+    for q in np.unique(pat[last & (pat >= 0)]):
+        blocks = set()
+        for y0, nb in ci[last & (pat == q)][:, [RC.CI_PRIM_Y0, RC.CI_PRIM_NB]]:
+            blocks.update(range(y0, y0 + nb))
+        nbytes += len(blocks) * 32 * ts * 4 * 4
+    blend_px = int(ci[last, RC.CI_PRIM_NB].clip(min=0).sum()) * 32 * ts
+    ops = 8 * blend_px + 7 * T * ts * ts
+    bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
+    if bytes_ms >= ops_ms:
+        return bytes_ms, "bytes", nbytes, ops
+    return ops_ms, "operations", nbytes, ops
+
+
 def compare(name, prepared, canvas_u8, kinds_seen, rows):
     """Kernel vs twin on one prepared batch; appends a result row and
     returns the kernel's output."""
@@ -182,11 +256,15 @@ def compare(name, prepared, canvas_u8, kinds_seen, rows):
     member = int((painted(out_k, canvas_u8) != painted(out_t, canvas_u8)).sum().item())
     T = b.tile_range.shape[0]
     C = b.chunk_i.shape[0]
+    bound_ms, bound_by, nbytes, ops = render_bound(b, canvas, ts)
     log(f"  {name}: T={T} ts={ts} chunks={C} kinds={kinds} max|diff|={max_diff} "
-        f"membership_mismatch={member} kernel_ms={kernel_ms:.4f} twin_ms={twin_ms:.1f}")
+        f"membership_mismatch={member} kernel_ms={kernel_ms:.4f} twin_ms={twin_ms:.1f} "
+        f"bound_ms={bound_ms:.6f} ({bound_by}: {nbytes} B, {ops} f32 ops) "
+        f"share_of_bound={100 * bound_ms / kernel_ms:.3f}%")
     rows.append(dict(name=name, T=T, ts=ts, chunks=C, max_diff=max_diff, member=member,
-                     kernel_ms=kernel_ms, twin_ms=twin_ms))
-    if max_diff > 1 or member != 0:
+                     kernel_ms=kernel_ms, twin_ms=twin_ms, bound_ms=bound_ms,
+                     bound_by=bound_by))
+    if max_diff != 0 or member != 0:
         raise AssertionError(f"{name}: kernel disagrees with its twin "
                              f"(max|diff| {max_diff}, membership mismatches {member})")
     return out_k
@@ -204,7 +282,8 @@ def compare_arena(name, render_arena, plain_out, rows):
         raise AssertionError(f"{name}: arena entry differs from the plain entry in {n} bytes")
     arena_ms = time_ms(render_arena)
     rows[-1]["arena_ms"] = arena_ms
-    log(f"    arena entry: byte-identical, arena_ms={arena_ms:.4f}")
+    log(f"    arena entry (rows read through the index): byte-identical, "
+        f"arena_ms={arena_ms:.4f}")
 
 
 def split_prepare(renderer, tiles_entities, scale, label_layers=None):
@@ -233,9 +312,9 @@ def scene_batch(device, icon: bool):
     import torch
     from PIL import Image
 
-    from osm_renderer_tpu.draw import primitives as P
-    from osm_renderer_tpu.draw.labels.icons import IconCache
-    from osm_renderer_tpu.ops.coverage_np import LINE_CAP_BUTT, LINE_CAP_ROUND
+    from osm_renderer_tpu_torch.draw import primitives as P
+    from osm_renderer_tpu_torch.draw.labels.icons import IconCache
+    from osm_renderer_tpu_torch.ops.coverage_np import LINE_CAP_BUTT, LINE_CAP_ROUND
     from osm_renderer_tpu_torch.ops import chunk_layout as CL
     from osm_renderer_tpu_torch.ops import render_cuda as RC
     from osm_renderer_tpu_torch.parallel.arena import ChunkArena
@@ -277,11 +356,11 @@ def scene_batch(device, icon: bool):
 
     arena = ChunkArena(min_cap=64, device=device)
     arena.insert([("scene", tc)])
-    packed, it = CL.pack_small_arena([tc], [arena.offset("scene")])
+    packed = CL.pack_small_arena([tc], [arena.offset("scene")])
     prof, tot = (torch.from_numpy(a).to(device) for a in profiles.arrays(np.float32))
 
     def render_arena():
-        return RC.render_arena_planar(packed, arena, prof, tot, b.patterns, c, 256, 1, it)
+        return RC.render_arena_planar(packed, arena, prof, tot, b.patterns, c, 256, 1)
 
     return PreparedBatch(b, c, 256, 1), render_arena, (241, 238, 232)
 
@@ -289,7 +368,7 @@ def scene_batch(device, icon: bool):
 def phase_kernel(device, styler, rows, kinds_seen, planars):
     """Render kernel vs twin and arena entry vs plain entry; the kernel's
     planar batches go to `planars` as (name, tensor on the card)."""
-    from osm_renderer_tpu.geodata.reader import GeodataReader
+    from osm_renderer_tpu_torch.geodata.reader import GeodataReader
     from osm_renderer_tpu_torch.ops import chunk_layout as CL
     from osm_renderer_tpu_torch.parallel.renderer import BatchRenderer
 
@@ -417,12 +496,20 @@ def phase_wire(device, planars, wire_rows, decode):
                    v2_bytes=4 * (3 + T + RL.PAL_CAP) + 2 * words["learned"])
         if name in WIRE_TIMED:
             row.update(_time_wire(planar, rtot, wcap, tab))
+            # Bytes each kernel must move: emit reads the RGB planes and
+            # writes the v1 wire; expand reads the runs and the palette
+            # and writes the v2 wire.  Both are bound by bytes.
+            row["emit_bound_ms"] = (3 * T * ts * ts + row["v1_bytes"]) / HBM_BYTES_PER_S * 1e3
+            row["expand_bound_ms"] = (4 * total_runs + 4 * RL.PAL_CAP + row["v2_bytes"]
+                                      ) / HBM_BYTES_PER_S * 1e3
             decode[name] = _time_decode(host_v1, host_v2, rgb, ts)
         wire_rows.append(row)
         timing = ""
         if "emit_ms" in row:
-            timing = (f" emit_ms={row['emit_ms']:.4f} (plain {row['emit_plain_ms']:.2f})"
-                      f" expand_ms={row['expand_ms']:.4f} (plain {row['expand_plain_ms']:.2f})")
+            timing = (f" emit_ms={row['emit_ms']:.4f} (plain {row['emit_plain_ms']:.2f}, "
+                      f"bound {row['emit_bound_ms']:.6f})"
+                      f" expand_ms={row['expand_ms']:.4f} (plain {row['expand_plain_ms']:.2f}, "
+                      f"bound {row['expand_bound_ms']:.6f})")
         log(f"  {name}: runs={total_runs} words(learned/half/pad)={words['learned']}/"
             f"{words['half']}/{words['pad']} bytes raw={raw} v1={row['v1_bytes']} "
             f"v2={row['v2_bytes']}: bit-identical, overflow flagged{timing}")
@@ -472,7 +559,7 @@ def _time_decode(v1, v2, rgb, ts):
     tiles), v1, and the raw planar transpose for scale."""
     import numpy as np
 
-    from osm_renderer_tpu.draw import png_writer
+    from osm_renderer_tpu_torch.draw import png_writer
     from osm_renderer_tpu_torch.ops import rle_layout as RL
     from osm_renderer_tpu_torch.parallel.renderer import RleTileView
 
@@ -519,7 +606,7 @@ def phase_labeled(device, styler):
     import numpy as np
     import torch
 
-    from osm_renderer_tpu.geodata.reader import GeodataReader
+    from osm_renderer_tpu_torch.geodata.reader import GeodataReader
     from osm_renderer_tpu_torch.draw.labels.labeler import Labeler
     from osm_renderer_tpu_torch.parallel import label_slab as LS
     from osm_renderer_tpu_torch.parallel.renderer import BatchRenderer
@@ -604,8 +691,8 @@ def phase_server(styler, rows_out, device="cuda"):
     import numpy as np
     from PIL import Image
 
-    from osm_renderer_tpu.draw.drawer import CpuDrawer
-    from osm_renderer_tpu.geodata.reader import GeodataReader
+    from osm_renderer_tpu_torch.draw.drawer import CpuDrawer
+    from osm_renderer_tpu_torch.geodata.reader import GeodataReader
 
     os.makedirs(OUT_DIR, exist_ok=True)
     with socket.socket() as s:
@@ -626,7 +713,7 @@ def phase_server(styler, rows_out, device="cuda"):
         "runpy.run_module('osm_renderer_tpu_torch.cli.renderer_main', run_name='__main__')\n"
     )
     reader = GeodataReader.load(MINI_BIN)
-    from osm_renderer_tpu.core.tile import Tile
+    from osm_renderer_tpu_torch.core.tile import Tile
 
     z15 = z_tiles(reader, 15)
     reqs = [(t, 1) for t in z15[:20]] + [(t, 2) for t in z15[:6]]
@@ -739,8 +826,8 @@ def phase_server(styler, rows_out, device="cuda"):
 def phase_inprocess(styler, device):
     """Warm served path in this process: the server's per-tile spans over
     warm batches (PNG cache off; labels off, and on for minicity)."""
-    from osm_renderer_tpu.core.tile import Tile
-    from osm_renderer_tpu.perfstats import PerfStats
+    from osm_renderer_tpu_torch.core.tile import Tile
+    from osm_renderer_tpu_torch.perfstats import PerfStats
     from osm_renderer_tpu_torch.server.http import TileService
 
     for city, path, n, labels in (("minicity", MINI_BIN, 30, False),
@@ -803,19 +890,28 @@ def main() -> int:
         for line in build.PTXAS_REPORT[source].splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 log(f"  ptxas: {line.strip()}")
+    import ctypes
+
+    occ = [ctypes.c_int() for _ in range(3)]
+    rc = build.render_library().osmr_render_occupancy(*(ctypes.byref(v) for v in occ))
+    if rc != 0:
+        return fail(f"render kernel occupancy query failed with cudaError_t {rc}")
+    threads, smem, blocks = (v.value for v in occ)
+    log(f"  render kernel: {threads} threads and {smem} B of dynamic shared memory a block, "
+        f"{blocks} blocks ({blocks * threads // 32} warps) resident per SM")
     from osm_renderer_tpu_torch.utils.torch_setup import build_native_host_libs
 
     build_native_host_libs()
 
     log("phase 2: fixtures")
     build_fixtures()
-    from osm_renderer_tpu.mapcss.parser import parse_file
-    from osm_renderer_tpu.mapcss.styler import Styler
+    from osm_renderer_tpu_torch.mapcss.parser import parse_file
+    from osm_renderer_tpu_torch.mapcss.styler import Styler
 
     styler = Styler(parse_file(STYLESHEET_DIR, "default.mapcss"), "josm")
 
     log("phase 3: render kernel vs its plain twin on the card "
-        "(bar: max |diff| <= 1 per channel, 0 membership mismatches), "
+        "(bar: byte-identical, max |diff| 0 and 0 membership mismatches), "
         "and the arena entry vs the plain entry (bar: byte-identical)")
     rows: list = []
     kinds_seen: set = set()
@@ -846,20 +942,21 @@ def main() -> int:
     log("phase 6: warm served path in process (PNG cache off; labels off, then on)")
     phase_inprocess(styler, device)
 
-    log("phase 7: no jax, no fontTools")
-    loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "fontTools"))
+    log("phase 7: no jax, no fontTools, no osm_renderer_tpu")
+    loaded = sorted(m for m in sys.modules if m.split(".")[0] in REFUSED)
     if loaded:
         return fail(f"imported {loaded[:5]}")
-    log("  neither jax nor fontTools in sys.modules")
+    log(f"  none of {', '.join(REFUSED)} in sys.modules")
 
     head = next(r for r in rows if r["name"] == "bigcity_z15[0]")
     wire_head = next(r for r in wire_rows if r["name"] == "bigcity_z15[0]")
     measured = {
         "render_planar": (max(r["max_diff"] for r in rows), head["kernel_ms"],
-                          head["twin_ms"]),
-        "rle_emit": (worst["rle_emit"], wire_head["emit_ms"], wire_head["emit_plain_ms"]),
+                          head["twin_ms"], head["bound_ms"], head["bound_by"]),
+        "rle_emit": (worst["rle_emit"], wire_head["emit_ms"], wire_head["emit_plain_ms"],
+                     wire_head["emit_bound_ms"], "bytes"),
         "rle_expand": (worst["rle_expand"], wire_head["expand_ms"],
-                       wire_head["expand_plain_ms"]),
+                       wire_head["expand_plain_ms"], wire_head["expand_bound_ms"], "bytes"),
     }
     launches = {"render_planar": served["launches"]["render"],
                 "rle_emit": served["launches"]["emit"],
@@ -867,7 +964,10 @@ def main() -> int:
     kernels = {"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,
          "launches": launches[name], "max_abs_err": measured[name][0],
-         "ms": measured[name][1], "plain_ms": measured[name][2]}
+         "ms": measured[name][1], "plain_ms": measured[name][2],
+         "bound_ms": measured[name][3], "bound_by": measured[name][4],
+         # No single PyTorch call computes any of the three functions.
+         "library_ms": None}
         for name, (source, replaces) in KERNELS.items()
     ]}
     print(json.dumps(kernels), flush=True)

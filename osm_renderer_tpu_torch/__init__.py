@@ -1,7 +1,9 @@
 """osm_renderer_tpu_torch: the tile renderer on PyTorch and CUDA.
 
 The port of `osm_renderer_tpu` (JAX/Pallas) to one NVIDIA Hopper GPU.
-Host code that does not import jax is shared with the JAX package; the
-device path (batch layout on the device, the hand-written CUDA render
-kernel in `csrc/`, serving) lives here.  This package never imports jax.
+It imports nothing of the JAX package: the jax-free host modules (core,
+perfstats, geodata, mapcss, draw) are copies under the same relative
+paths, and the device path (batch layout on the device, the
+hand-written CUDA kernels in `csrc/`, serving) lives here.  This
+package never imports jax.
 """

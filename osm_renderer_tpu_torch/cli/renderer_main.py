@@ -25,8 +25,8 @@ With backend = device, the server prints, when it shuts down, the
 launches of each kernel made while serving (render, run emit, palette
 expand) and the batches it served by path: arena or plain upload, and
 v1 wire, v2 wire or raw planar readback, beside the tiles whose labels
-were blended on the device (`labeled_tiles`).  Labels need no fontTools
-on that backend; `backend = cpu` runs the original server, which does.
+were blended on the device (`labeled_tiles`).  Both backends run the
+port's own server and labeler and need neither jax nor fontTools.
 """
 
 from __future__ import annotations
@@ -79,8 +79,8 @@ def main(argv=None) -> int:
         print(f"Unknown render backend: {backend}", file=sys.stderr)
         return 1
 
-    from osm_renderer_tpu.mapcss.parser import parse_file
-    from osm_renderer_tpu.mapcss.styler import Styler
+    from osm_renderer_tpu_torch.mapcss.parser import parse_file
+    from osm_renderer_tpu_torch.mapcss.styler import Styler
     from osm_renderer_tpu_torch.ops import render_cuda, rle_cuda
 
     base_path, file_name = os.path.split(stylesheet_file)
@@ -105,10 +105,10 @@ def main(argv=None) -> int:
                        service.batch_renderer.readback_bytes):
             counts.update(dict.fromkeys(counts, 0))
     else:
-        # The C++ oracle backend of the original server (needs no GPU).
-        from osm_renderer_tpu.server.http import TileService as CpuTileService, run_server
+        # The C++ oracle on the CPU, one tile a request (needs no GPU).
+        from osm_renderer_tpu_torch.server.http import TileService, run_server
 
-        service = CpuTileService(
+        service = TileService(
             geodata_file, styler, base_path, backend="cpu", osm_ids=osm_ids,
             enable_labels=labels, png_level=png_level, png_cache_tiles=png_cache,
         )

@@ -7,14 +7,45 @@
 //
 // Design.  The TPU kernel keeps a whole tile's f32 RGBA accumulator and
 // pending-alpha plane in VMEM (1.25 MiB at ts = 256) while its
-// sequential grid walks the tile's chunks.  That does not fit an SM's
-// shared memory, and CUDA blocks run in no order.  Here each block owns
-// one (tile, 8-row x 32-column pixel block) with one thread per pixel;
-// the pixel's premultiplied RGBA and pending alpha live in registers.
-// The block walks its tile's contiguous chunk range in paint order,
-// skips chunks whose row blocks miss its rows, stages the chunk's lanes
-// in shared memory, and writes the u8 planar output at the end.  No
-// atomics and no state crosses blocks.
+// sequential grid walks the tile's chunks.  That does not fit an SM, and
+// CUDA blocks run in no order.  Here one block of 256 threads owns one
+// (tile, 32-row band, 128-column half): the band is the layout's row
+// block RB, the half is the column window of fills, tent lanes, work
+// items and segments, so every band and window test below is exact at
+// chunk granularity.  Each warp owns a 16-row x 32-column region and
+// each thread one column of it (16 pixels).  The region's premultiplied
+// RGBA and pending alpha live in shared memory (80 KB a block, two
+// blocks an SM), private to the thread that owns the pixel, so no
+// atomics and no state crosses threads or blocks.
+//
+// What bounds it on the H100.  The batch's bytes are small: the chunk
+// arrays are read from L2 a few times over, and the output is 4 bytes a
+// pixel, which 3.35 TB/s writes in ~0.01 ms for 97 tiles.  The time goes
+// to per-pixel evaluation and to walking chunks, so the design cuts both:
+//
+// * Skip and prefetch chunks.  A warp reads 32 chunk headers at once and
+//   ballots which of them matter to its block: a chunk that paints the
+//   band in the block's window, a tile's first chunk (CI_FIRST reset),
+//   and every CI_LAST chunk whose primitive rows [prim_y0, prim_y0 +
+//   prim_nb) x RB meet the band, even when the chunk's own rows miss it
+//   (KIND_LAYER chunks only blend).  Only chunks that paint the band are
+//   staged: their lanes (geom, aux rows 0-2, trav, sprof; 4.5 KB) go to a
+//   ring of two shared-memory buffers by cp.async, so chunk k+1 loads
+//   while chunk k is evaluated.
+// * Cull, then evaluate.  Each warp tests a staged chunk's lanes 32 at a
+//   time, one lane per thread, against its region: a fill span's row and
+//   [xlo, xhi], a tent lane's [y0, y1] x [xlo, xhi], a segment's padded
+//   box, a work item's row block ((w >> 8) & 63) and column window.  The
+//   survivors are the set bits of the ballot, visited in ascending lane
+//   order, so every sum keeps the TPU kernel's order (the tent lanes'
+//   ahi/alo are summed lane by lane) and no shared list or barrier is
+//   needed.  A fill span then touches only its own row, a tent lane
+//   evaluates its tent once per column and adds it to the rows it
+//   covers, a work item evaluates only its 8 or 16 rows of the region,
+//   and a segment's scalars load once per segment instead of per pixel.
+// * Arena rows through the index.  `rows`, when given, maps a batch
+//   chunk to its row of the device chunk arena for geom, trav, sprof,
+//   aux and items, so the arena entry gathers nothing.
 //
 // The TPU evaluated per-pixel predicates through bf16 matmuls (fill
 // coverage (U @ W) > 0.5, tent lanes split into an integer and a bf16
@@ -26,15 +57,6 @@
 // comes from its section (alive 8x128, steep 16x64 with the 64-column
 // half given by the item's position in its group of four, dead-start
 // 8x128), a segment's from its row blocks and 128-column halves.
-//
-// What bounds it on the H100.  Per chunk a block re-reads the chunk's
-// scalars and lanes (L2-resident, a few KB) and each in-range thread
-// loops over up to 128 lanes or the chunk's work items, so the kernel
-// is bound by per-pixel integer/f32 instruction issue and by blocks
-// that walk chunks which miss them, not by device memory: a batch reads
-// its chunk arrays once per 8-row band and writes 4 bytes per pixel.
-// Making it fast (work culling per block, wider blocks, persistent
-// scheduling) is later work; this kernel is the simple correct one.
 //
 // Floating point.  Built with -fmad=false: every membership test here
 // (the feather compare on |sdy*x + nc - sdx*y| * inv_denom, cd <
@@ -52,16 +74,27 @@
 namespace {
 
 constexpr int CH = 128;      // lanes per chunk
-constexpr int RB = 32;       // rows per chunk row block
-constexpr int RB_I = 8;      // rows per alive / dead work-item window
-constexpr int RB16 = 16;     // rows per steep work-item window
+constexpr int RB = 32;       // rows per chunk row block (= rows per block)
 constexpr int DS = 4;        // dash-profile rows per profile
 constexpr int NSEC = 12;     // work-item section slots per chunk
 constexpr int NCI = 9;       // int scalars per chunk (see CI_*)
 constexpr int NCF = 5;       // float scalars per chunk (see CF_*)
-constexpr int BW = 32;       // pixel columns per block
-constexpr int BH = 8;        // pixel rows per block
 constexpr int JMAX_CHAIN = 12;
+
+constexpr int HALF = 128;            // columns per block
+constexpr int NTHREADS = 256;        // threads per block
+constexpr int WROWS = 16;            // rows per warp region (pixels per thread)
+constexpr int WCOLS = 32;            // columns per warp region
+constexpr unsigned FULL = 0xFFFFFFFFu;
+// One staged chunk: geom (4 x CH) i32, aux rows 0-2 (3 x CH) f32, trav
+// (CH) f32, sprof (CH) i32, as 32-bit words.
+constexpr int ST_GEOM = 0, ST_AUX = 4 * CH, ST_TRAV = 7 * CH, ST_SPROF = 8 * CH;
+constexpr int STAGE_WORDS = 9 * CH;
+constexpr int STAGE_PIECES = STAGE_WORDS / 4;   // 16-byte copies
+// Shared memory: acc (4 x WROWS x NTHREADS) f32, pending (WROWS x
+// NTHREADS) f32, two stages.
+constexpr int SMEM_WORDS = 5 * WROWS * NTHREADS + 2 * STAGE_WORDS;
+constexpr int SMEM_BYTES = SMEM_WORDS * 4;
 
 enum {
   KIND_PAD = 0, KIND_FILL = 1, KIND_STROKE = 2, KIND_STROKE_SOLID = 3,
@@ -73,11 +106,12 @@ enum { CF_R, CF_G, CF_B, CF_OPACITY, CF_HW };
 enum { MODE_ALIVE, MODE_DEAD };
 
 struct Params {
-  const int32_t* geom;        // (C, 4, CH)
-  const float* trav;          // (C, CH)
-  const int32_t* sprof;       // (C, CH)
-  const float* aux;           // (C, 4, CH)
-  const int32_t* items;       // (C, it_width)
+  const int32_t* geom;        // (R, 4, CH)
+  const float* trav;          // (R, CH)
+  const int32_t* sprof;       // (R, CH)
+  const float* aux;           // (R, 4, CH)
+  const int32_t* items;       // (R, items_stride)
+  const int32_t* rows;        // (C,) arena row of each chunk, or null: row = chunk
   const int32_t* isec;        // (C, NSEC)
   const int32_t* chunk_i;     // (C, NCI)
   const float* chunk_f;       // (C, NCF)
@@ -87,7 +121,7 @@ struct Params {
   const float* canvas;        // (3,)
   const int32_t* tile_range;  // (T, 2) [begin, end) chunk indices
   uint8_t* out;               // (T, 4, ts, ts)
-  int it_width;
+  int items_stride;
   int ts;
 };
 
@@ -403,203 +437,439 @@ __device__ float stroke_item_alpha(const Seg& s, int mode, bool dashed, const Pr
   return mask ? opacity * op_emit : 0.0f;
 }
 
-__global__ void __launch_bounds__(BW * BH)
+// ---------------------------------------------------------------------------
+// The block's walk over its tile's chunks
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// Wait until at most the most recently committed group is in flight.
+__device__ __forceinline__ void cp_async_wait_prev() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Where a block is: tile, 32-row band, 128-column half.
+struct Place {
+  int band, half, n_halves, item_halves;
+};
+
+// What chunk ch asks of a block.
+enum { NEED_FIRST = 1, NEED_PAINT = 2, NEED_BLEND = 4 };
+
+__device__ __forceinline__ int chunk_needs(const Params& p, int ch, const Place& pl) {
+  const int* ci = p.chunk_i + (size_t)ch * NCI;
+  const int kind = ci[CI_KIND];
+  int need = ci[CI_FIRST] == 1 ? NEED_FIRST : 0;
+  if (kind == KIND_PAD) return need;
+  const int y0 = ci[CI_Y0];
+  if (pl.band >= y0 && pl.band < y0 + ci[CI_NB]) {
+    bool in_win = false;  // KIND_LAYER and the legacy kinds only blend
+    if (kind == KIND_FILL || kind == KIND_FILL_IMAGE || kind == KIND_STROKE_SPAN) {
+      const int colp1 = p.isec[(size_t)ch * NSEC];
+      in_win = (colp1 >= 1 && colp1 <= pl.n_halves) ? pl.half == colp1 - 1 : true;
+    } else if (kind == KIND_STROKE) {
+      in_win = true;
+    } else if (kind == KIND_STROKE_SOLID || kind == KIND_STROKE_DASH) {
+      in_win = pl.half < pl.item_halves;
+    }
+    if (in_win) need |= NEED_PAINT;
+  }
+  if (ci[CI_LAST] == 1) {
+    const int p0 = ci[CI_PRIM_Y0];
+    if (pl.band >= p0 && pl.band < p0 + ci[CI_PRIM_NB]) need |= NEED_BLEND;
+  }
+  return need;
+}
+
+// The next chunk after `after` (< c_end) that this block needs, or
+// c_end.  (wbase, wmask) is the current window of 32 chunk headers and
+// the ballot of those needed; every warp of the block computes the same.
+__device__ __forceinline__ int next_chunk(const Params& p, const Place& pl, int after, int c_end,
+                                          int lane, int& wbase, unsigned& wmask) {
+  for (;;) {
+    const int off = after + 1 - wbase;
+    const unsigned m = off <= 0 ? wmask : (off >= 32 ? 0u : (wmask & (FULL << off)));
+    if (m) return wbase + __ffs(m) - 1;
+    wbase += 32;
+    if (wbase >= c_end) return c_end;
+    const int ch = wbase + lane;
+    wmask = __ballot_sync(FULL, ch < c_end && chunk_needs(p, ch, pl) != 0);
+  }
+}
+
+// Queue the copy of arena row `row`'s lanes into one stage.
+__device__ __forceinline__ void stage_chunk(const Params& p, int row, int* dst, int tid) {
+  for (int piece = tid; piece < STAGE_PIECES; piece += NTHREADS) {
+    const int w = piece * 4;
+    const void* src;
+    if (w < ST_AUX) {
+      src = p.geom + (size_t)row * 4 * CH + w;
+    } else if (w < ST_TRAV) {
+      src = p.aux + (size_t)row * 4 * CH + (w - ST_AUX);
+    } else if (w < ST_SPROF) {
+      src = p.trav + (size_t)row * CH + (w - ST_TRAV);
+    } else {
+      src = p.sprof + (size_t)row * CH + (w - ST_SPROF);
+    }
+    cp_async16(dst + w, src);
+  }
+}
+
+// The thread's pixels: column x, rows [wr0, wr0 + WROWS) of its warp's
+// region [wr0, wr0 + WROWS) x [wc0, wc0 + WCOLS).  pend[k * NTHREADS] is
+// row wr0 + k's pending alpha.
+struct Px {
+  float* pend;
+  int x, wr0, wc0, lane, q;
+};
+
+__device__ __forceinline__ void fmax_into(float* v, float a) { *v = fmaxf(*v, a); }
+
+// KIND_FILL, KIND_FILL_IMAGE: spans (y, xlo, xhi); a covered pixel takes
+// the opacity.
+__device__ __forceinline__ void paint_fill(const int* sg, float opacity, const Px& px) {
+  for (int g = 0; g < CH; g += 32) {
+    const int s = g + px.lane;
+    const int ys = sg[s];
+    unsigned m = __ballot_sync(FULL, ys >= px.wr0 && ys < px.wr0 + WROWS &&
+                                         sg[CH + s] < px.wc0 + WCOLS && sg[2 * CH + s] >= px.wc0);
+    while (m) {
+      const int t = g + __ffs(m) - 1;
+      m &= m - 1;
+      if (px.x >= sg[CH + t] && px.x <= sg[2 * CH + t]) {
+        fmax_into(px.pend + (sg[t] - px.wr0) * NTHREADS, opacity);
+      }
+    }
+  }
+}
+
+// KIND_STROKE_SPAN: tent lanes over [y0, y1] x [xlo, xhi].  A lane's
+// tent depends on x only, so it is evaluated once per column and added
+// to every covered row, lanes in ascending order (ahi and alo apart, as
+// the TPU's two matmuls summed them).
+__device__ __forceinline__ void paint_span(const int* sg, const float* sa, float opacity,
+                                           float hw, const Px& px) {
+  const float plat255 = opacity * fminf(2.0f * hw, 1.0f) * 255.0f;
+  const float xf = (float)px.x;
+  float ahi[WROWS], alo[WROWS];
+#pragma unroll
+  for (int k = 0; k < WROWS; ++k) {
+    ahi[k] = 0.0f;
+    alo[k] = 0.0f;
+  }
+  bool any = false;
+  for (int g = 0; g < CH; g += 32) {
+    const int s = g + px.lane;
+    unsigned m = __ballot_sync(FULL, sg[CH + s] >= px.wr0 && sg[s] < px.wr0 + WROWS &&
+                                         sg[3 * CH + s] >= px.wc0 && sg[2 * CH + s] < px.wc0 + WCOLS);
+    any = any || m != 0;
+    while (m) {
+      const int t = g + __ffs(m) - 1;
+      m &= m - 1;
+      if (px.x >= sg[2 * CH + t] && px.x <= sg[3 * CH + t]) {
+        const float tent = sa[t] - sa[CH + t] * fabsf(xf - sa[2 * CH + t]);
+        const float mv = fmaxf(fminf(tent, plat255), 0.0f);
+        const float mi = floorf(mv);
+        const float lo = bf16_round(mv - mi);
+        const int k0 = sg[t] - px.wr0, k1 = sg[CH + t] - px.wr0;
+#pragma unroll
+        for (int k = 0; k < WROWS; ++k) {
+          if (k >= k0 && k <= k1) {
+            ahi[k] += mi;
+            alo[k] += lo;
+          }
+        }
+      }
+    }
+  }
+  if (any) {
+#pragma unroll
+    for (int k = 0; k < WROWS; ++k) {
+      fmax_into(px.pend + k * NTHREADS, (ahi[k] + alo[k]) * (float)(1.0 / 255.0));
+    }
+  }
+}
+
+// KIND_STROKE: each segment over its 32-row blocks x 128-column halves
+// (the padded-box test of the TPU kernel's window list).
+__device__ __forceinline__ void paint_segments(const Params& p, const int* sg, const float* sa,
+                                               const float* strav, const int* ssprof, int cnt,
+                                               float hw, float opacity, const Place& pl,
+                                               const Px& px) {
+  const int m = (int)ceilf(hw) + 2;
+  const int col0 = pl.half * HALF;
+  for (int g = 0; g < cnt; g += 32) {
+    const int s = g + px.lane;
+    bool hit = false;
+    if (s < cnt) {
+      const int p1x = sg[s], p1y = sg[CH + s], p2x = sg[2 * CH + s], p2y = sg[3 * CH + s];
+      const int ylo = max(min(p1y, p2y) - m, 0);
+      const int yhi = min(max(p1y, p2y) + m, p.ts - 1);
+      const int blk0 = ylo / RB;
+      const int nbs = (p1x == p2x && p1y == p2y) ? 0 : floor_div(yhi - blk0 * RB, RB) + 1;
+      hit = pl.band >= blk0 && pl.band < blk0 + nbs &&
+            min(p1x, p2x) - m < col0 + HALF && max(p1x, p2x) + m >= col0;
+    }
+    unsigned msk = __ballot_sync(FULL, hit);
+    while (msk) {
+      const int t = g + __ffs(msk) - 1;
+      msk &= msk - 1;
+      const Seg seg = load_seg(sg, sa, t);
+      const int pidx = ssprof[t];
+      const Prof P{p.profiles + (size_t)pidx * DS * 8, p.prof_total[pidx]};
+      bool any_orig = false;
+#pragma unroll
+      for (int i = 0; i < DS; ++i) {
+        any_orig = any_orig || (P.row[i * 8] < 1e30f && P.row[i * 8 + 5] > 0.0f);
+      }
+      const float trav = strav[t];
+#pragma unroll 1
+      for (int k = 0; k < WROWS; ++k) {
+        fmax_into(px.pend + k * NTHREADS,
+                  stroke_segment_alpha(seg, P, any_orig, trav, hw, opacity, px.x, px.wr0 + k));
+      }
+    }
+  }
+}
+
+// KIND_STROKE_SOLID, KIND_STROKE_DASH: the work items of the block's
+// column half, each over the rows of its window that the warp owns.
+__device__ __forceinline__ void paint_items(const Params& p, const int* it, const int* sec,
+                                            const int* sg, const float* sa, const float* strav,
+                                            const int* ssprof, bool dashed, float hw,
+                                            float opacity, const Place& pl, const Px& px) {
+  for (int fam = 0; fam < 3; ++fam) {
+    const int slot = 4 * fam + pl.half;
+    const int start = slot > 0 ? sec[slot - 1] : 0;
+    const int n4 = ((sec[slot] - start) >> 2) << 2;
+    const bool steep = fam == 1;
+    const int mode = fam == 2 ? MODE_DEAD : MODE_ALIVE;
+    for (int g = 0; g < n4; g += 32) {
+      const int i = g + px.lane;
+      const int w = i < n4 ? it[start + i] : 0;
+      const int rb = (w >> 8) & 63;
+      // Steep: rows [rb*16, +16) and the 64-column half (i & 3) >> 1;
+      // alive and dead-start: rows [rb*8, +8) of the 128-column half.
+      const bool hit = i < n4 && (steep ? (rb == (px.wr0 >> 4) && (px.q >> 1) == ((i & 3) >> 1))
+                                        : ((rb >> 1) == (px.wr0 >> 4)));
+      unsigned m = __ballot_sync(FULL, hit);
+      while (m) {
+        const int j = __ffs(m) - 1;
+        m &= m - 1;
+        const int wj = __shfl_sync(FULL, w, j);
+        const int sgi = wj & 127;
+        const Seg seg = load_seg(sg, sa, sgi);
+        const int pidx = dashed ? ssprof[sgi] : 0;
+        const Prof P{p.profiles + (size_t)pidx * DS * 8, p.prof_total[pidx]};
+        const float trav = strav[sgi];
+        const int k0 = steep ? 0 : ((wj >> 8) & 63) * 8 - px.wr0;
+        const int k1 = steep ? WROWS : k0 + 8;
+#pragma unroll 1
+        for (int k = k0; k < k1; ++k) {
+          fmax_into(px.pend + k * NTHREADS,
+                    stroke_item_alpha(seg, mode, dashed, P, trav, hw, opacity, px.x, px.wr0 + k));
+        }
+      }
+    }
+  }
+}
+
+// CI_LAST: blend pending (or a pattern or layer) into acc over the
+// thread's rows; the caller has checked that the primitive's rows cover
+// the band.
+__device__ __forceinline__ void blend_chunk(const Params& p, int kind, const int* ci,
+                                            const float* cf, float* acc, float* pend,
+                                            const Px& px) {
+  const int pat = ci[CI_PAT];
+  if (pat < 0) {
+    const float cr = cf[CF_R], cg = cf[CF_G], cb = cf[CF_B];
+#pragma unroll 4
+    for (int k = 0; k < WROWS; ++k) {
+      float* ak = acc + k * NTHREADS;
+      const float a = pend[k * NTHREADS];
+      const float keep = 1.0f - a;
+      ak[0] = a * cr + keep * ak[0];
+      ak[WROWS * NTHREADS] = a * cg + keep * ak[WROWS * NTHREADS];
+      ak[2 * WROWS * NTHREADS] = a * cb + keep * ak[2 * WROWS * NTHREADS];
+      ak[3 * WROWS * NTHREADS] = a + keep * ak[3 * WROWS * NTHREADS];
+      pend[k * NTHREADS] = 0.0f;
+    }
+    return;
+  }
+  const int ts = p.ts;
+  const size_t plane = (size_t)ts * ts;
+  const float* pp0 = p.patterns + (size_t)pat * 4 * plane + (size_t)px.wr0 * ts + px.x;
+#pragma unroll 4
+  for (int k = 0; k < WROWS; ++k) {
+    float* ak = acc + k * NTHREADS;
+    const float* pp = pp0 + (size_t)k * ts;
+    const float pr = pp[0], pg = pp[plane], pb = pp[2 * plane], pa = pp[3 * plane];
+    if (kind == KIND_LAYER) {
+      const float keep = 1.0f - pa;
+      ak[0] = pr + keep * ak[0];
+      ak[WROWS * NTHREADS] = pg + keep * ak[WROWS * NTHREADS];
+      ak[2 * WROWS * NTHREADS] = pb + keep * ak[2 * WROWS * NTHREADS];
+      ak[3 * WROWS * NTHREADS] = pa + keep * ak[3 * WROWS * NTHREADS];
+    } else {
+      const float mask = pend[k * NTHREADS];
+      const float keep = 1.0f - mask * pa;
+      ak[0] = mask * pr + keep * ak[0];
+      ak[WROWS * NTHREADS] = mask * pg + keep * ak[WROWS * NTHREADS];
+      ak[2 * WROWS * NTHREADS] = mask * pb + keep * ak[2 * WROWS * NTHREADS];
+      ak[3 * WROWS * NTHREADS] = mask * pa + keep * ak[3 * WROWS * NTHREADS];
+      pend[k * NTHREADS] = 0.0f;
+    }
+  }
+}
+
+__device__ __forceinline__ void reset_pixels(float* acc, float* pend, float cr, float cg,
+                                             float cb) {
+#pragma unroll 4
+  for (int k = 0; k < WROWS; ++k) {
+    float* ak = acc + k * NTHREADS;
+    ak[0] = cr;
+    ak[WROWS * NTHREADS] = cg;
+    ak[2 * WROWS * NTHREADS] = cb;
+    ak[3 * WROWS * NTHREADS] = 1.0f;
+    pend[k * NTHREADS] = 0.0f;
+  }
+}
+
+__global__ void __launch_bounds__(NTHREADS, 2)
 render_kernel(const Params p) {
-  __shared__ int s_geom[4 * CH];
-  __shared__ float s_aux[3 * CH];
-  __shared__ float s_trav[CH];
-  __shared__ int s_sprof[CH];
+  extern __shared__ __align__(16) float smem[];
+  const int tid = threadIdx.x;
+  // acc[c][k][tid] and pend[k][tid]: thread tid's own pixels.
+  float* acc = smem + tid;
+  float* pend = smem + 4 * WROWS * NTHREADS + tid;
+  int* stage = reinterpret_cast<int*>(smem + 5 * WROWS * NTHREADS);
 
   const int ts = p.ts;
   const int tile = blockIdx.z;
-  const int row0 = blockIdx.y * BH;
-  const int x = blockIdx.x * BW + threadIdx.x;
-  const int y = row0 + threadIdx.y;
-  const int tid = threadIdx.y * BW + threadIdx.x;
-  const int n_halves = ts / 128;
-  const int item_halves = min(n_halves, 4);
+  const int lane = tid & 31, warp = tid >> 5;
+  Place pl;
+  pl.band = blockIdx.y;
+  pl.half = blockIdx.x;
+  pl.n_halves = ts / HALF;
+  pl.item_halves = min(pl.n_halves, 4);
+  Px px;
+  px.pend = pend;
+  px.lane = lane;
+  px.q = warp & 3;
+  px.wc0 = pl.half * HALF + px.q * WCOLS;
+  px.wr0 = pl.band * RB + (warp >> 2) * WROWS;
+  px.x = px.wc0 + lane;
+
   const int c_begin = p.tile_range[2 * tile];
   const int c_end = p.tile_range[2 * tile + 1];
-
   const float cr0 = p.canvas[0], cg0 = p.canvas[1], cb0 = p.canvas[2];
-  float acc_r = cr0, acc_g = cg0, acc_b = cb0, acc_a = 1.0f;
-  float pending = 0.0f;
+  reset_pixels(acc, pend, cr0, cg0, cb0);
 
-  for (int ch = c_begin; ch < c_end; ++ch) {
-    const int* ci = p.chunk_i + (size_t)ch * NCI;
-    const float* cf = p.chunk_f + (size_t)ch * NCF;
-    const int kind = ci[CI_KIND];
-    if (ci[CI_FIRST] == 1) {
-      acc_r = cr0; acc_g = cg0; acc_b = cb0; acc_a = 1.0f;
-      pending = 0.0f;
+  int wbase = c_begin - 32;
+  unsigned wmask = 0;
+  int cur = next_chunk(p, pl, c_begin - 1, c_end, lane, wbase, wmask);
+  int cur_need = cur < c_end ? chunk_needs(p, cur, pl) : 0;
+  int slot = 0;
+  if (cur_need & NEED_PAINT) stage_chunk(p, p.rows ? p.rows[cur] : cur, stage, tid);
+  cp_async_commit();
+
+  while (cur < c_end) {
+    // Prefetch the next needed chunk's lanes into the other stage; the
+    // barrier that closed the last painted chunk freed it.
+    const int nxt = next_chunk(p, pl, cur, c_end, lane, wbase, wmask);
+    const int nxt_need = nxt < c_end ? chunk_needs(p, nxt, pl) : 0;
+    if (nxt_need & NEED_PAINT) {
+      stage_chunk(p, p.rows ? p.rows[nxt] : nxt, stage + (slot ^ 1) * STAGE_WORDS, tid);
     }
-    if (kind == KIND_PAD) continue;
+    cp_async_commit();
 
-    const int y0 = ci[CI_Y0];
-    const int nb = ci[CI_NB];
-    const bool paints = kind == KIND_FILL || kind == KIND_FILL_IMAGE ||
-                        kind == KIND_STROKE_SPAN || kind == KIND_STROKE ||
-                        kind == KIND_STROKE_SOLID || kind == KIND_STROKE_DASH;
-    // Block-uniform: 8-row blocks never straddle a 32-row chunk block.
-    if (paints && row0 >= y0 * RB && row0 < (y0 + nb) * RB) {
-      __syncthreads();  // previous chunk's lanes are no longer read
-      const int* g = p.geom + (size_t)ch * 4 * CH;
-      const float* a = p.aux + (size_t)ch * 4 * CH;
-      for (int i = tid; i < 4 * CH; i += BW * BH) s_geom[i] = g[i];
-      for (int i = tid; i < 3 * CH; i += BW * BH) s_aux[i] = a[i];
-      for (int i = tid; i < CH; i += BW * BH) {
-        s_trav[i] = p.trav[(size_t)ch * CH + i];
-        s_sprof[i] = p.sprof[(size_t)ch * CH + i];
-      }
+    const int* ci = p.chunk_i + (size_t)cur * NCI;
+    const float* cf = p.chunk_f + (size_t)cur * NCF;
+    const int kind = ci[CI_KIND];
+    if (cur_need & NEED_FIRST) reset_pixels(acc, pend, cr0, cg0, cb0);
+    if (cur_need & NEED_PAINT) {
+      cp_async_wait_prev();
       __syncthreads();
-
+      const int* st = stage + slot * STAGE_WORDS;
+      const int* sg = st + ST_GEOM;
+      const float* sa = reinterpret_cast<const float*>(st + ST_AUX);
+      const float* strav = reinterpret_cast<const float*>(st + ST_TRAV);
+      const int* ssprof = st + ST_SPROF;
       const float opacity = cf[CF_OPACITY];
       const float hw = cf[CF_HW];
-      const int colp1 = p.isec[(size_t)ch * NSEC];
-      const bool in_win = (colp1 >= 1 && colp1 <= n_halves) ? ((x >> 7) == colp1 - 1) : true;
-
       if (kind == KIND_FILL || kind == KIND_FILL_IMAGE) {
-        if (in_win) {
-          bool covered = false;
-          for (int s = 0; s < CH && !covered; ++s) {
-            covered = s_geom[s] == y && x >= s_geom[CH + s] && x <= s_geom[2 * CH + s];
-          }
-          pending = fmaxf(pending, covered ? opacity : 0.0f);
-        }
+        paint_fill(sg, opacity, px);
       } else if (kind == KIND_STROKE_SPAN) {
-        if (in_win) {
-          const float plat255 = opacity * fminf(2.0f * hw, 1.0f) * 255.0f;
-          const float xf = (float)x;
-          float ahi = 0.0f, alo = 0.0f;
-          for (int s = 0; s < CH; ++s) {
-            if (y >= s_geom[s] && y <= s_geom[CH + s] &&
-                x >= s_geom[2 * CH + s] && x <= s_geom[3 * CH + s]) {
-              const float tent = s_aux[s] - s_aux[CH + s] * fabsf(xf - s_aux[2 * CH + s]);
-              const float m = fmaxf(fminf(tent, plat255), 0.0f);
-              const float mi = floorf(m);
-              ahi += mi;
-              alo += bf16_round(m - mi);
-            }
-          }
-          pending = fmaxf(pending, (ahi + alo) * (float)(1.0 / 255.0));
-        }
+        paint_span(sg, sa, opacity, hw, px);
       } else if (kind == KIND_STROKE) {
-        const int cnt = ci[CI_CNT];
-        const int m = (int)ceilf(hw) + 2;
-        const int by = y / RB;
-        const int col0 = (x >> 7) << 7;
-        for (int sg = 0; sg < cnt; ++sg) {
-          const int p1x = s_geom[sg], p1y = s_geom[CH + sg];
-          const int p2x = s_geom[2 * CH + sg], p2y = s_geom[3 * CH + sg];
-          const int ylo = max(min(p1y, p2y) - m, 0);
-          const int yhi = min(max(p1y, p2y) + m, ts - 1);
-          const int blk0 = ylo / RB;
-          const int nbs = (p1x == p2x && p1y == p2y) ? 0 : floor_div(yhi - blk0 * RB, RB) + 1;
-          if (by < blk0 || by >= blk0 + nbs) continue;
-          if (!(min(p1x, p2x) - m < col0 + 128 && max(p1x, p2x) + m >= col0)) continue;
-          const Seg seg = load_seg(s_geom, s_aux, sg);
-          const int pidx = s_sprof[sg];
-          const Prof P{p.profiles + (size_t)pidx * DS * 8, p.prof_total[pidx]};
-          bool any_orig = false;
-#pragma unroll
-          for (int i = 0; i < DS; ++i) {
-            any_orig = any_orig || (P.row[i * 8] < 1e30f && P.row[i * 8 + 5] > 0.0f);
-          }
-          pending = fmaxf(pending, stroke_segment_alpha(seg, P, any_orig, s_trav[sg], hw,
-                                                        opacity, x, y));
-        }
-      } else {  // KIND_STROKE_SOLID, KIND_STROKE_DASH: work items
-        const bool dashed = kind == KIND_STROKE_DASH;
-        const int* it = p.items + (size_t)ch * p.it_width;
-        const int* sec = p.isec + (size_t)ch * NSEC;
-        const int half = x >> 7;
-        if (half < item_halves) {
-          for (int fam = 0; fam < 3; ++fam) {
-            const int slot = 4 * fam + half;
-            const int start = slot > 0 ? sec[slot - 1] : 0;
-            const int n4 = ((sec[slot] - start) >> 2) << 2;
-            const bool steep = fam == 1;
-            const int mode = fam == 2 ? MODE_DEAD : MODE_ALIVE;
-            for (int i = 0; i < n4; ++i) {
-              const int w = it[start + i];
-              const int rb = (w >> 8) & 63;
-              const bool hit = steep ? ((y >> 4) == rb && ((x >> 6) & 1) == ((i & 3) >> 1))
-                                     : ((y >> 3) == rb);
-              if (!hit) continue;
-              const int sg = w & 127;
-              const Seg seg = load_seg(s_geom, s_aux, sg);
-              const int pidx = dashed ? s_sprof[sg] : 0;
-              const Prof P{p.profiles + (size_t)pidx * DS * 8, p.prof_total[pidx]};
-              pending = fmaxf(pending, stroke_item_alpha(seg, mode, dashed, P, s_trav[sg], hw,
-                                                         opacity, x, y));
-            }
-          }
-        }
+        paint_segments(p, sg, sa, strav, ssprof, ci[CI_CNT], hw, opacity, pl, px);
+      } else {
+        const int row = p.rows ? p.rows[cur] : cur;
+        paint_items(p, p.items + (size_t)row * p.items_stride, p.isec + (size_t)cur * NSEC, sg,
+                    sa, strav, ssprof, kind == KIND_STROKE_DASH, hw, opacity, pl, px);
       }
+      __syncthreads();  // every warp is done with this stage
     }
-
-    if (ci[CI_LAST] == 1) {
-      const int p0 = ci[CI_PRIM_Y0];
-      const int pn = ci[CI_PRIM_NB];
-      if (y >= p0 * RB && y < (p0 + pn) * RB) {
-        const int pat = ci[CI_PAT];
-        if (pat < 0) {
-          const float a = pending;
-          const float keep = 1.0f - a;
-          acc_r = a * cf[CF_R] + keep * acc_r;
-          acc_g = a * cf[CF_G] + keep * acc_g;
-          acc_b = a * cf[CF_B] + keep * acc_b;
-          acc_a = a + keep * acc_a;
-          pending = 0.0f;
-        } else {
-          const size_t plane = (size_t)ts * ts;
-          const float* pp = p.patterns + (size_t)pat * 4 * plane + (size_t)y * ts + x;
-          const float pr = pp[0], pg = pp[plane], pb = pp[2 * plane], pa = pp[3 * plane];
-          if (kind == KIND_LAYER) {
-            const float keep = 1.0f - pa;
-            acc_r = pr + keep * acc_r;
-            acc_g = pg + keep * acc_g;
-            acc_b = pb + keep * acc_b;
-            acc_a = pa + keep * acc_a;
-          } else {
-            const float mask = pending;
-            const float keep = 1.0f - mask * pa;
-            acc_r = mask * pr + keep * acc_r;
-            acc_g = mask * pg + keep * acc_g;
-            acc_b = mask * pb + keep * acc_b;
-            acc_a = mask * pa + keep * acc_a;
-            pending = 0.0f;
-          }
-        }
-      }
-    }
+    if (cur_need & NEED_BLEND) blend_chunk(p, kind, ci, cf, acc, pend, px);
+    cur = nxt;
+    cur_need = nxt_need;
+    slot ^= 1;
   }
+  cp_async_wait_all();
 
-  const float mul = acc_a == 0.0f ? 0.0f : 1.0f / acc_a;
-  const float accs[3] = {acc_r, acc_g, acc_b};
   const size_t plane = (size_t)ts * ts;
-  uint8_t* o = p.out + (size_t)tile * 4 * plane + (size_t)y * ts + x;
+  uint8_t* o = p.out + (size_t)tile * 4 * plane + (size_t)px.wr0 * ts + px.x;
+#pragma unroll 4
+  for (int k = 0; k < WROWS; ++k) {
+    const float* ak = acc + k * NTHREADS;
+    const float acc_a = ak[3 * WROWS * NTHREADS];
+    const float mul = acc_a == 0.0f ? 0.0f : 1.0f / acc_a;
+    uint8_t* ok = o + (size_t)k * ts;
 #pragma unroll
-  for (int c = 0; c < 3; ++c) {
-    float v = 255.0f * accs[c] * mul;
-    v = isnan(v) ? 0.0f : fminf(fmaxf(v, 0.0f), 255.0f);
-    o[c * plane] = (uint8_t)(int)truncf(v);
+    for (int c = 0; c < 3; ++c) {
+      float v = 255.0f * ak[c * WROWS * NTHREADS] * mul;
+      v = isnan(v) ? 0.0f : fminf(fmaxf(v, 0.0f), 255.0f);
+      ok[c * plane] = (uint8_t)(int)truncf(v);
+    }
+    ok[3 * plane] = 255;
   }
-  o[3 * plane] = 255;
 }
 
 }  // namespace
 
 extern "C" int osmr_render_planar(
     const int32_t* geom, const float* trav, const int32_t* sprof, const float* aux,
-    const int32_t* items, int it_width, const int32_t* isec, const int32_t* chunk_i,
-    const float* chunk_f, const float* profiles, const float* prof_total,
-    const float* patterns, const float* canvas, const int32_t* tile_range,
-    uint8_t* out, int n_tiles, int ts, void* stream) {
-  Params p{geom, trav, sprof, aux, items, isec, chunk_i, chunk_f, profiles, prof_total,
-           patterns, canvas, tile_range, out, it_width, ts};
-  const dim3 grid(ts / BW, ts / BH, n_tiles);
-  const dim3 block(BW, BH);
-  render_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(p);
+    const int32_t* items, int items_stride, const int32_t* rows, const int32_t* isec,
+    const int32_t* chunk_i, const float* chunk_f, const float* profiles,
+    const float* prof_total, const float* patterns, const float* canvas,
+    const int32_t* tile_range, uint8_t* out, int n_tiles, int ts, void* stream) {
+  const cudaError_t err = cudaFuncSetAttribute(
+      render_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  Params p{geom, trav, sprof, aux, items, rows, isec, chunk_i, chunk_f, profiles, prof_total,
+           patterns, canvas, tile_range, out, items_stride, ts};
+  const dim3 grid(ts / HALF, ts / RB, n_tiles);
+  render_kernel<<<grid, NTHREADS, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(p);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Threads a block, dynamic shared memory a block, and resident blocks an
+// SM on the current device.
+extern "C" int osmr_render_occupancy(int* threads, int* smem_bytes, int* blocks_per_sm) {
+  cudaError_t err = cudaFuncSetAttribute(
+      render_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  *threads = NTHREADS;
+  *smem_bytes = SMEM_BYTES;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, render_kernel, NTHREADS,
+                                                      SMEM_BYTES);
+  return static_cast<int>(err);
 }

@@ -1,0 +1,94 @@
+"""Per-tile rendering orchestration.
+
+* `CpuDrawer` — drives the C++ oracle rasterizer entity-by-entity,
+  replicating the reference's `Drawer::draw_to_pixels` exactly
+  (drawer.rs:60-131): reset -> fills -> casings -> strokes -> blend ->
+  labels -> blend -> RGB.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from osm_renderer_tpu_torch.core.tile import Tile
+from osm_renderer_tpu_torch.draw.oracle import OracleTile
+from osm_renderer_tpu_torch.draw.primitives import FillPrim, StrokePrim, assemble_tile_prims
+from osm_renderer_tpu_torch.mapcss.styler import Styler
+
+
+class CpuDrawer:
+    """Oracle-backed CPU rendering path (the reference-parity baseline)."""
+
+    def __init__(self, labeler=None, icon_cache=None, stylesheet_dir=None):
+        self.labeler = labeler
+        if icon_cache is None and stylesheet_dir is not None:
+            from osm_renderer_tpu_torch.draw.labels.icons import IconCache
+
+            icon_cache = IconCache(stylesheet_dir)
+        self.icon_cache = icon_cache
+        self._tile_cache: dict = {}
+
+    def _tile_for_scale(self, scale: int) -> OracleTile:
+        tile = self._tile_cache.get(scale)
+        if tile is None:
+            tile = OracleTile(scale)
+            self._tile_cache[scale] = tile
+        return tile
+
+    def draw_to_pixels(self, entities, tile: Tile, scale: int, styler: Styler) -> np.ndarray:
+        from osm_renderer_tpu_torch import perfstats
+
+        pixels = self._tile_for_scale(scale)
+        with perfstats.measure("Resetting TilePixels"):
+            pixels.reset(styler.canvas_fill_color)
+
+        with perfstats.measure("Style areas"):
+            prims = assemble_tile_prims(entities, tile, float(scale), styler)
+
+        with perfstats.measure("Fill and draw areas"):
+            for p in prims:
+                if isinstance(p, FillPrim):
+                    if p.edges.shape[0]:
+                        edges32 = np.clip(p.edges, -(2**31), 2**31 - 1).astype(np.int32)
+                        if p.fill_image is not None:
+                            icon = (
+                                self.icon_cache.get(p.fill_image)
+                                if self.icon_cache is not None
+                                else None
+                            )
+                            if icon is not None:
+                                pixels.fill_contour_icon(edges32, icon.rgba)
+                        else:
+                            pixels.fill_contour(edges32, p.color, p.opacity)
+                else:
+                    if p.segs.shape[0]:
+                        self._draw_stroke(pixels, p)
+                pixels.bump_generation()
+
+        with perfstats.measure("Blend after areas"):
+            pixels.blend_unfinished(False)
+
+        if self.labeler is not None:
+            with perfstats.measure("Draw labels"):
+                self.labeler.draw_labels(pixels, entities, tile, float(scale), styler)
+
+        with perfstats.measure("Blend after labels"):
+            pixels.blend_unfinished(True)
+        return pixels.to_rgb()
+
+    @staticmethod
+    def _draw_stroke(pixels: OracleTile, p: StrokePrim) -> None:
+        # The oracle's draw_lines reconstructs caps/traveled itself, so feed
+        # it the original consecutive point pairs (incl. degenerate ones —
+        # they matter for the first/last cap decision).
+        body = p.raw_pairs if p.raw_pairs is not None else p.segs[~p.outer]
+        pixels.draw_lines(
+            np.clip(body, -(2**31), 2**31 - 1).astype(np.int32),
+            p.half_width * 2.0,
+            p.color,
+            p.opacity,
+            list(p.dashes) if p.dashes is not None else None,
+            p.cap,
+            p.use_caps_for_dashes,
+        )
+

@@ -23,7 +23,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
-from osm_renderer_tpu.draw.oracle import GlyphRasterizer
+from osm_renderer_tpu_torch.draw.oracle import GlyphRasterizer
 
 PHASE_Q = 16     # subpixel phase bins per axis
 ANGLE_Q = 4096   # rotation bins over 2*pi

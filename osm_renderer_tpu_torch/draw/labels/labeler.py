@@ -17,13 +17,13 @@ from typing import Optional
 
 import numpy as np
 
-from osm_renderer_tpu.core.tile import Tile
-from osm_renderer_tpu.draw.labels.icons import IconCache
+from osm_renderer_tpu_torch.core.tile import Tile
+from osm_renderer_tpu_torch.draw.labels.icons import IconCache
 from osm_renderer_tpu_torch.draw.labels.text_placer import TextPlacer
-from osm_renderer_tpu.draw.labels import labelable
-from osm_renderer_tpu.draw.oracle import OracleTile
-from osm_renderer_tpu.geodata.reader import Multipolygon, Way
-from osm_renderer_tpu.mapcss.styler import Style, Styler, TextPosition
+from osm_renderer_tpu_torch.draw.labels import labelable
+from osm_renderer_tpu_torch.draw.oracle import OracleTile
+from osm_renderer_tpu_torch.geodata.reader import Multipolygon, Way
+from osm_renderer_tpu_torch.mapcss.styler import Style, Styler, TextPosition
 
 
 class Labeler:
@@ -252,7 +252,7 @@ class Labeler:
             out = np.ascontiguousarray(base_rgb)
             if out is base_rgb:
                 out = base_rgb.copy()
-            from osm_renderer_tpu.draw.png_writer import _get_native
+            from osm_renderer_tpu_torch.draw.png_writer import _get_native
 
             lib = _get_native()
             if lib is not None:

@@ -17,8 +17,8 @@ from typing import List, Optional, Tuple
 import numpy as np
 
 from osm_renderer_tpu_torch.draw.labels.font import CURVE_TO, LINE_TO, MOVE_TO, FontEngine
-from osm_renderer_tpu.draw.oracle import GlyphRasterizer, OracleTile
-from osm_renderer_tpu.mapcss.styler import TextPosition, TextStyle
+from osm_renderer_tpu_torch.draw.oracle import GlyphRasterizer, OracleTile
+from osm_renderer_tpu_torch.mapcss.styler import TextPosition, TextStyle
 
 MAX_TEXT_WIDTH = 256.0 / 8.0
 
@@ -58,7 +58,7 @@ class TextPlacer:
         glyphs (missing text tag / font size / too-wide-for-way).
         Both the exact oracle path and the glyph-atlas path consume
         this, so placement math lives in exactly one place."""
-        from osm_renderer_tpu.draw.labels import labelable
+        from osm_renderer_tpu_torch.draw.labels import labelable
 
         color = text_style.text_color
         rgb = (color.r, color.g, color.b) if color is not None else (0, 0, 0)

@@ -1,49 +1,152 @@
-"""Native (C++) tile assembly for the port: styled entities -> TileChunks.
+"""Native (C++) tile assembly: styled entities -> TileChunks.
 
-The port's counterpart of `osm_renderer_tpu.draw.native_assembler`:
-`assemble_tile_chunks_native` and `_splice_layers` are the original
-functions, built on the port's jax-free `ops.chunk_layout` instead of
-`ops.render_pallas`.  The jax-free helpers (library loading, request
-and output buffers, layer-path entity edges) are imported from the
-original module, which drives the same `native/assembler.cpp`.
+Drives `native/assembler.cpp`, an exact transcription of the Python
+pipeline assemble_tile_prims -> stream_tile_packed -> build_tile_chunks
+(draw/primitives.py, draw/packing.py, draw/spans.py,
+ops/render_pallas.py).  Python keeps styling, projection, profile /
+pattern table management and the rare host-rasterized layer path
+(out-of-bound or oversize primitives, returned by the native call as
+placeholder chunks and spliced back here).
+
+Cold host assembly is the serving path's bottleneck (VERDICT r2 #2:
+~23 ms/tile of per-primitive numpy); the native assembler does the
+same work in ~1-2 ms/tile.  Byte-exact equality with the Python path
+is pinned by tests/test_native_assembler.py.
 """
 
 from __future__ import annotations
 
+import ctypes
+import os
+import threading
+from typing import Optional
+
 import numpy as np
 
-from osm_renderer_tpu.core.tile import Tile
-from osm_renderer_tpu.draw import native_assembler as _ref
-from osm_renderer_tpu.draw.native_assembler import (
-    IT_CAP,
-    _buffers,
-    _entity_edges,
-    _pat_name,
-    _Requests,
-)
-from osm_renderer_tpu.draw.primitives import (
+from osm_renderer_tpu_torch.core.tile import Tile
+from osm_renderer_tpu_torch.draw import primitives as prim_mod
+from osm_renderer_tpu_torch.draw.primitives import (
     CHAIN_EXACT_HALF_WIDTH,
     FillPrim,
+    StrokePrim,
     _CAP_TO_INT,
     make_stroke_prim,
     project_points,
 )
-from osm_renderer_tpu.geodata.reader import Multipolygon, Way
-from osm_renderer_tpu.ops.coverage_np import LINE_CAP_ROUND
-from osm_renderer_tpu_torch.ops.chunk_layout import (
-    TileChunks,
-    _pad_group,
-    build_tile_chunks,
-)
+from osm_renderer_tpu_torch.geodata.reader import Multipolygon, Way
+from osm_renderer_tpu_torch.ops.coverage_np import LINE_CAP_ROUND
+from osm_renderer_tpu_torch.ops.chunk_layout import TileChunks, _pad_group, build_tile_chunks
 from osm_renderer_tpu_torch.utils.torch_setup import build_native_host_libs
+
+_REPO_ROOT = os.path.dirname(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+)
+_NATIVE_DIR = os.path.join(_REPO_ROOT, "native")
+_LIB_PATH = os.path.join(_NATIVE_DIR, "libosmr_assembler.so")
+
+_I64 = np.ctypeslib.ndpointer(dtype=np.int64, flags="C_CONTIGUOUS")
+_I32 = np.ctypeslib.ndpointer(dtype=np.int32, flags="C_CONTIGUOUS")
+_F64 = np.ctypeslib.ndpointer(dtype=np.float64, flags="C_CONTIGUOUS")
+_F32 = np.ctypeslib.ndpointer(dtype=np.float32, flags="C_CONTIGUOUS")
+_U8 = np.ctypeslib.ndpointer(dtype=np.uint8, flags="C_CONTIGUOUS")
+
+_native = None
+_native_failed = False
+_lock = threading.Lock()
+
+IT_CAP = 2048
 
 
 def get_native():
-    """The C++ assembler library, built by name first (see
-    `build_native_host_libs`); None when it cannot be loaded, in which
-    case callers take the Python assembly path like the original."""
-    build_native_host_libs()
-    return _ref.get_native()
+    global _native, _native_failed
+    if _native is not None or _native_failed:
+        return _native
+    with _lock:
+        if _native is not None or _native_failed:
+            return _native
+        try:
+            build_native_host_libs()
+            lib = ctypes.CDLL(_LIB_PATH)
+            lib.osmr_assemble_tile.restype = ctypes.c_int64
+            lib.osmr_assemble_tile.argtypes = [
+                _I64, _I64, _I64, ctypes.c_int64, ctypes.c_int32,
+                _U8, _I64, _F64, _F64, _F64, _I32, _I32, _U8, _U8, _I32,
+                _I64, _U8, ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
+                ctypes.c_int64,
+                _I32, _F32, _I32, _F32,
+                _I32, _I32, _I32, _I32, _I32, _I32, _I32,
+                _F32, _F32, _F32, _I32, _I32, _I32, _I32, _I32,
+            ]
+            _native = lib
+        except Exception:
+            _native_failed = True
+    return _native
+
+
+class _Requests:
+    """Flat request arrays in paint order."""
+
+    def __init__(self):
+        self.kind = []
+        self.style_key = []
+        self.color = []
+        self.opacity = []
+        self.hw = []
+        self.body_pidx = []
+        self.outer_pidx = []
+        self.cap = []
+        self.force_layer = []
+        self.pat = []
+        self.req_rings = []   # (ring_off, ring_cnt)
+        self.rings = []       # (refs_off, refs_len)
+        self.entity = []      # entity per request (for the layer path)
+        self.dashes = []      # scaled dashes tuple or None (layer path)
+        self.use_caps = []
+        self._key_map = {}
+
+    def key_for(self, tup) -> int:
+        got = self._key_map.get(tup)
+        if got is None:
+            got = len(self._key_map)
+            self._key_map[tup] = got
+        return got
+
+
+class _OutBuffers:
+    """Reusable per-thread output arrays (allocation dominates small
+    tiles otherwise)."""
+
+    def __init__(self, cap: int):
+        self.cap = cap
+        z = lambda *shape: np.zeros(shape, np.int32)
+        self.geom = z(cap, 4, 128)
+        self.trav = np.zeros((cap, 1, 128), np.float32)
+        self.sprof = z(cap, 1, 128)
+        self.aux = np.zeros((cap, 4, 128), np.float32)
+        self.kind, self.cnt, self.last = z(cap), z(cap), z(cap)
+        self.y0, self.nb, self.py0, self.pnb = z(cap), z(cap), z(cap), z(cap)
+        self.color = np.zeros((cap, 3), np.float32)
+        self.op = np.zeros((cap,), np.float32)
+        self.hw = np.zeros((cap,), np.float32)
+        self.pat = z(cap)
+        self.items = z(cap, IT_CAP)
+        self.item_len = z(cap)
+        self.isec = z(cap, 12)
+        self.ph = z(cap)
+
+
+_tls = threading.local()
+
+
+def _buffers(cap_needed: int) -> _OutBuffers:
+    buf = getattr(_tls, "buf", None)
+    if buf is None or buf.cap < cap_needed:
+        cap = 256
+        while cap < cap_needed:
+            cap *= 2
+        buf = _OutBuffers(cap)
+        _tls.buf = buf
+    return buf
 
 
 def assemble_tile_chunks_native(
@@ -61,7 +164,7 @@ def assemble_tile_chunks_native(
     # Measure points mirror the reference's drawer.rs:51-123 spans; the
     # contextmanager is a no-op unless a perfstats tile run is active
     # (tools/cold_profile.py, /perf_stats).
-    from osm_renderer_tpu.perfstats.spans import measure
+    from osm_renderer_tpu_torch.perfstats.spans import measure
 
     with measure("Style areas"):
         styled = styler.style_areas(
@@ -347,7 +450,7 @@ def assemble_tile_chunks_native(
 def _splice_layers(tc, placeholders, o_ph, rq, tile, scale, profiles, patterns, ts_px):
     """Replace placeholder chunks with host-rasterized KIND_LAYER rows
     (built by the existing Python layer path)."""
-    from osm_renderer_tpu.draw.primitives import TileStream, _stream_fill_layer, _stream_stroke_layer
+    from osm_renderer_tpu_torch.draw.primitives import TileStream, _stream_fill_layer, _stream_stroke_layer
 
     has_icon = False
     parts = []  # (position, TileChunks or None)
@@ -417,3 +520,16 @@ def _splice_layers(tc, placeholders, o_ph, rq, tile, scale, profiles, patterns, 
     if not out[0]:
         return build_tile_chunks(TileStream(), ts_px), has_icon
     return TileChunks(*(np.concatenate(p, axis=0) for p in out)), has_icon
+
+
+def _entity_edges(entity, tile, scale) -> np.ndarray:
+    return prim_mod._entity_point_pairs(entity, tile, scale)
+
+
+def _pat_name(patterns, pat_idx: int) -> Optional[str]:
+    if pat_idx < 0 or patterns is None:
+        return None
+    for name, idx in patterns._idx.items():
+        if idx == pat_idx:
+            return name
+    return None

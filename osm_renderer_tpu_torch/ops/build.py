@@ -98,11 +98,13 @@ def render_library(ptxas_verbose: bool = False) -> ctypes.CDLL:
     fn = lib.osmr_render_planar
     fn.restype = ctypes.c_int
     fn.argtypes = (
-        [ctypes.c_void_p] * 5 + [ctypes.c_int]           # geom..items, it_width
-        + [ctypes.c_void_p] * 8                          # isec..tile_range
+        [ctypes.c_void_p] * 5 + [ctypes.c_int]           # geom..items, items_stride
+        + [ctypes.c_void_p] * 9                          # rows, isec..tile_range
         + [ctypes.c_void_p, ctypes.c_int, ctypes.c_int]  # out, n_tiles, ts
         + [ctypes.c_void_p]                              # stream
     )
+    lib.osmr_render_occupancy.restype = ctypes.c_int
+    lib.osmr_render_occupancy.argtypes = [ctypes.POINTER(ctypes.c_int)] * 3
     return lib
 
 

@@ -121,7 +121,7 @@ def _convert_tile_chunks(s, ts: int):
     Fill geometry columns become (y, x_from, x_to, 0); membership is
     decided on the host in exact integer arithmetic, the kernel only
     paints (fill.rs:16-47 semantics live in fill_spans)."""
-    from osm_renderer_tpu.draw.spans import fill_spans
+    from osm_renderer_tpu_torch.draw.spans import fill_spans
 
     out = []
     zero_f = np.zeros(0)
@@ -1227,7 +1227,7 @@ N_SMALL = 16 + NSEC  # i32 lanes in the packed small-field buffer
 
 def pack_small_arena(
     tile_chunks: List[TileChunks], offsets: List[Tuple[int, int]]
-) -> Tuple[np.ndarray, int]:
+) -> np.ndarray:
     """Host side of a warm batch: per-chunk scalars + arena gather rows
     packed into one (N_SMALL, C) i32 buffer.  Lane layout:
 
@@ -1236,7 +1236,6 @@ def pack_small_arena(
       13 opacity (f32 bits)  14 hw (f32 bits)  15 gather row
       16.. isec (NSEC lanes)
 
-    Returns (packed, IT) where IT is the batch's bucketed item width.
     Mirrors concat_pallas_batch's bucketing/padding exactly (pads:
     kind=KIND_PAD, pat=-1, tile_id=last tile, gather row 0 = the
     arena's reserved zero row)."""
@@ -1273,7 +1272,4 @@ def pack_small_arena(
         pos = e
     if pos < Ctot:
         packed[0, pos:] = max(T - 1, 0)
-
-    IT = max(c.items.shape[2] for c in tile_chunks)
-    IT = max(256, 1 << (IT - 1).bit_length())
-    return packed, IT
+    return packed

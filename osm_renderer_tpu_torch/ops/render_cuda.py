@@ -127,14 +127,15 @@ def from_numpy_batch(
     return batch, up(np.asarray(canvas_rgb, np.float32).reshape(3), np.float32)
 
 
-def _check(b: CudaBatch, canvas: torch.Tensor, ts: int) -> None:
+def _check(b: CudaBatch, canvas: torch.Tensor, ts: int, rows: Optional[torch.Tensor]) -> None:
     dev = b.geom.device
-    C = b.geom.shape[0]
+    C = b.chunk_i.shape[0]
+    R = C if rows is None else b.geom.shape[0]
     want = {
-        "geom": (torch.int32, (C, 4, L.CH)),
-        "trav": (torch.float32, (C, L.CH)),
-        "sprof": (torch.int32, (C, L.CH)),
-        "aux": (torch.float32, (C, 4, L.CH)),
+        "geom": (torch.int32, (R, 4, L.CH)),
+        "trav": (torch.float32, (R, L.CH)),
+        "sprof": (torch.int32, (R, L.CH)),
+        "aux": (torch.float32, (R, 4, L.CH)),
         "items": (torch.int32, None),
         "isec": (torch.int32, (C, L.NSEC)),
         "chunk_i": (torch.int32, (C, NCI)),
@@ -154,8 +155,14 @@ def _check(b: CudaBatch, canvas: torch.Tensor, ts: int) -> None:
             raise BatchLayoutError(f"{name} is not contiguous")
         if shape is not None and tuple(t.shape) != shape:
             raise BatchLayoutError(f"{name} has shape {tuple(t.shape)}, want {shape}")
-    if b.items.dim() != 2 or b.items.shape[0] != C:
-        raise BatchLayoutError(f"items has shape {tuple(b.items.shape)}, want ({C}, IT)")
+    if b.items.dim() != 2 or b.items.shape[0] != R:
+        raise BatchLayoutError(f"items has shape {tuple(b.items.shape)}, want ({R}, IT)")
+    if rows is not None and (rows.device != dev or rows.dtype != torch.int32
+                             or tuple(rows.shape) != (C,) or not rows.is_contiguous()):
+        raise BatchLayoutError(f"rows must be a contiguous ({C},) int32 tensor on {dev}")
+    # The kernel stages lanes with 16-byte asynchronous copies.
+    if any(t.data_ptr() % 16 for t in (b.geom, b.trav, b.sprof, b.aux)):
+        raise BatchLayoutError("geom, trav, sprof and aux must start on 16-byte boundaries")
     NP = b.profiles.shape[0]
     if tuple(b.profiles.shape) != (NP, L.DS, 8) or tuple(b.prof_total.shape) != (NP,) or NP < 1:
         raise BatchLayoutError("profiles must be (NP, DS, 8) with prof_total (NP,), NP >= 1")
@@ -169,15 +176,25 @@ def _check(b: CudaBatch, canvas: torch.Tensor, ts: int) -> None:
         raise BatchLayoutError(f"tile size {ts} must be a multiple of 128 in [128, 1024]")
 
 
-def render_batch_planar(b: CudaBatch, canvas: torch.Tensor, ts: int) -> torch.Tensor:
+def render_batch_planar(
+    b: CudaBatch, canvas: torch.Tensor, ts: int, rows: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
     """-> (T, 4, ts, ts) uint8 planar (channel 3 is 255 padding).
 
-    CUDA tensors launch the kernel on the current stream (no
-    synchronisation); CPU tensors run the plain twin."""
+    `rows`, when given, is the (C,) i32 row of each chunk in `b.geom`,
+    `trav`, `sprof`, `aux` and `items` (the chunk arena's tensors); the
+    caller guarantees every row is in range.  CUDA tensors launch the
+    kernel on the current stream (no synchronisation), which reads the
+    rows through the index; CPU tensors gather them with `index_select`
+    and run the plain twin."""
     global RENDER_KERNEL_LAUNCHES
-    _check(b, canvas, ts)
+    _check(b, canvas, ts, rows)
     dev = b.geom.device
     if dev.type == "cpu":
+        if rows is not None:
+            idx = rows.long()
+            b = b._replace(**{name: getattr(b, name).index_select(0, idx)
+                              for name in ("geom", "trav", "sprof", "aux", "items")})
         return render_batch_planar_reference(b, canvas, ts)
     if dev.type != "cuda":
         raise BatchLayoutError(f"render_batch_planar: unsupported device {dev}")
@@ -190,8 +207,8 @@ def render_batch_planar(b: CudaBatch, canvas: torch.Tensor, ts: int) -> torch.Te
     with torch.cuda.device(dev):
         rc = lib.osmr_render_planar(
             b.geom.data_ptr(), b.trav.data_ptr(), b.sprof.data_ptr(), b.aux.data_ptr(),
-            b.items.data_ptr(), b.items.shape[1], b.isec.data_ptr(),
-            b.chunk_i.data_ptr(), b.chunk_f.data_ptr(), b.profiles.data_ptr(),
+            b.items.data_ptr(), b.items.shape[1], rows.data_ptr() if rows is not None else None,
+            b.isec.data_ptr(), b.chunk_i.data_ptr(), b.chunk_f.data_ptr(), b.profiles.data_ptr(),
             b.prof_total.data_ptr(), b.patterns.data_ptr(), canvas.data_ptr(),
             b.tile_range.data_ptr(), out.data_ptr(), T, ts, stream,
         )
@@ -204,7 +221,7 @@ def render_batch_planar(b: CudaBatch, canvas: torch.Tensor, ts: int) -> torch.Te
 
 def render_arena_planar(
     packed: np.ndarray, arena, prof_rows: torch.Tensor, prof_total: torch.Tensor,
-    patterns: torch.Tensor, canvas: torch.Tensor, ts: int, n_tiles: int, IT: int,
+    patterns: torch.Tensor, canvas: torch.Tensor, ts: int, n_tiles: int,
 ) -> torch.Tensor:
     """-> (T, 4, ts, ts) u8 planar, assembled on the arena's device.
 
@@ -212,17 +229,17 @@ def render_arena_planar(
     host (N_SMALL, C) buffer of `chunk_layout.pack_small_arena`; it and
     the tiles' chunk ranges, derived here from its tile lane, are the
     batch's only upload (one copy).  The profile, pattern and canvas
-    tensors are already resident.  The arena rows are gathered by lane 15
-    with `index_select`, as the JAX package gathers them in XLA outside
-    its kernel, and the render kernel runs on the gathered batch."""
+    tensors are already resident.  The render kernel reads the arena's
+    rows through lane 15, the batch's row index, where the JAX package
+    gathered them in XLA outside its kernel."""
     return _render_arena(packed, np.zeros(0, np.int32), arena, prof_rows, prof_total,
-                         patterns, canvas, ts, n_tiles, IT)[0]
+                         patterns, canvas, ts, n_tiles)[0]
 
 
 def render_arena_planar_labeled(
     packed: np.ndarray, label_rows: np.ndarray, arena, prof_rows: torch.Tensor,
     prof_total: torch.Tensor, patterns: torch.Tensor, canvas: torch.Tensor, ts: int,
-    n_tiles: int, IT: int, label_plane: torch.Tensor,
+    n_tiles: int, label_plane: torch.Tensor,
 ) -> torch.Tensor:
     """`render_arena_planar`, then the device label blit.
 
@@ -243,22 +260,20 @@ def render_arena_planar_labeled(
             or np.any(off + n > label_plane.shape[0])):
         raise BatchLayoutError("label_rows out of range of the tile or the slab plane")
     out, up_tri = _render_arena(packed, tri.reshape(-1), arena, prof_rows, prof_total,
-                                patterns, canvas, ts, n_tiles, IT)
+                                patterns, canvas, ts, n_tiles)
     lrow = LS.expand_ltriples(up_tri.view(n_tiles, 3), ts)
     return LS.blit_planar(out, label_plane, lrow)
 
 
 def _render_arena(
     packed: np.ndarray, tail: np.ndarray, arena, prof_rows, prof_total, patterns, canvas,
-    ts: int, n_tiles: int, IT: int,
+    ts: int, n_tiles: int,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The arena entry with an i32 `tail` riding in the same upload
     -> (planar output, the tail on the device)."""
     packed = np.ascontiguousarray(packed, dtype=np.int32)
     if packed.ndim != 2 or packed.shape[0] != L.N_SMALL:
         raise BatchLayoutError(f"packed has shape {packed.shape}, want ({L.N_SMALL}, C)")
-    if not 1 <= IT <= arena.items.shape[1]:
-        raise BatchLayoutError(f"item width {IT} outside [1, {arena.items.shape[1]}]")
     tile_id, rows = packed[0], packed[15]
     if np.any(np.diff(tile_id) < 0):
         raise BatchLayoutError("tile_id must be non-decreasing (tiles' chunks contiguous)")
@@ -275,13 +290,8 @@ def _render_arena(
     up = torch.from_numpy(np.concatenate([packed.reshape(-1), tile_range.reshape(-1), tail]))
     up = up.to(arena.geom.device)
     pk = up[: N * C].view(N, C)
-    idx = pk[15].long()
     batch = CudaBatch(
-        geom=arena.geom.index_select(0, idx),
-        trav=arena.trav.index_select(0, idx),
-        sprof=arena.sprof.index_select(0, idx),
-        aux=arena.aux.index_select(0, idx),
-        items=arena.items[:, :IT].index_select(0, idx).contiguous(),
+        geom=arena.geom, trav=arena.trav, sprof=arena.sprof, aux=arena.aux, items=arena.items,
         isec=pk[16:].T.contiguous(),
         # lanes: 2 kind 3 cnt 4 last 5 y0 6 nb 7 prim_y0 8 prim_nb 9 pat 1 first
         chunk_i=pk[[2, 3, 4, 5, 6, 7, 8, 9, 1]].T.contiguous(),
@@ -290,7 +300,7 @@ def _render_arena(
         profiles=prof_rows, prof_total=prof_total, patterns=patterns,
         tile_range=up[N * C : N * C + 2 * n_tiles].view(n_tiles, 2),
     )
-    return render_batch_planar(batch, canvas, ts), up[N * C + 2 * n_tiles :]
+    return render_batch_planar(batch, canvas, ts, rows=pk[15]), up[N * C + 2 * n_tiles :]
 
 
 # ---------------------------------------------------------------------------

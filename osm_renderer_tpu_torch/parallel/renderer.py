@@ -23,11 +23,11 @@ from typing import NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from osm_renderer_tpu.core.tile import Tile
-from osm_renderer_tpu.draw import png_writer
-from osm_renderer_tpu.draw import primitives as prim_mod
-from osm_renderer_tpu.draw.primitives import FAST_COORD_BOUND, assemble_tile_prims
-from osm_renderer_tpu.mapcss.styler import Styler
+from osm_renderer_tpu_torch.core.tile import Tile
+from osm_renderer_tpu_torch.draw import png_writer
+from osm_renderer_tpu_torch.draw import primitives as prim_mod
+from osm_renderer_tpu_torch.draw.primitives import FAST_COORD_BOUND, assemble_tile_prims
+from osm_renderer_tpu_torch.mapcss.styler import Styler
 from osm_renderer_tpu_torch.draw import native_assembler as _na
 from osm_renderer_tpu_torch.ops import chunk_layout as L
 from osm_renderer_tpu_torch.ops import render_cuda as RC
@@ -47,7 +47,6 @@ class PreparedBatch(NamedTuple):
     # Arena path: the packed small-field buffer is the only per-batch
     # upload, and the big chunk fields are gathered from the arena.
     arena_packed: Optional[np.ndarray] = None  # (N_SMALL, C) i32 host buffer
-    arena_it: int = 0                          # bucketed item width
     arena_ctx: object = None                   # (arena, prof, tot, pat, generation)
     # Device label blit: the (T, 3) (off, y0, n) slab-row map rides in the
     # packed upload; these tiles come back with their labels blended.
@@ -151,7 +150,7 @@ class BatchRenderer:
         self.readback_bytes = {"wire": 0, "planar": 0}
         self.icon_cache = None
         if stylesheet_dir is not None:
-            from osm_renderer_tpu.draw.labels.icons import IconCache
+            from osm_renderer_tpu_torch.draw.labels.icons import IconCache
 
             self.icon_cache = IconCache(stylesheet_dir)
         _na.get_native()
@@ -273,7 +272,7 @@ class BatchRenderer:
         raises."""
         arena = self.chunk_arena
         offsets = [arena.offset(k) for k in tile_keys]
-        packed, it_width = L.pack_small_arena(tile_chunks, offsets)
+        packed = L.pack_small_arena(tile_chunks, offsets)
 
         label_rows = label_ctx = None
         device_labeled: tuple = ()
@@ -314,7 +313,7 @@ class BatchRenderer:
 
         return PreparedBatch(
             None, self._canvas_tensor(), ts_px, n_tiles, tuple(fallback),
-            arena_packed=packed, arena_it=it_width,
+            arena_packed=packed,
             arena_ctx=(arena, prof_dev, tot_dev, gp[1], arena.generation),
             label_rows=label_rows, label_ctx=label_ctx, device_labeled=device_labeled,
         )
@@ -383,14 +382,13 @@ class BatchRenderer:
                     raise ValueError("label slab reset between prepare and render")
                 out = RC.render_arena_planar_labeled(
                     prepared.arena_packed, prepared.label_rows, arena, prof_dev, tot_dev,
-                    pat_dev, prepared.canvas_rgb, prepared.ts, prepared.chunk,
-                    prepared.arena_it, slab.plane,
+                    pat_dev, prepared.canvas_rgb, prepared.ts, prepared.chunk, slab.plane,
                 )
                 self.batch_counts["labeled_tiles"] += len(prepared.device_labeled)
             else:
                 out = RC.render_arena_planar(
                     prepared.arena_packed, arena, prof_dev, tot_dev, pat_dev,
-                    prepared.canvas_rgb, prepared.ts, prepared.chunk, prepared.arena_it,
+                    prepared.canvas_rgb, prepared.ts, prepared.chunk,
                 )
             self.batch_counts["arena"] += 1
             return out

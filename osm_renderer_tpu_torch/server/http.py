@@ -1,7 +1,9 @@
-"""Slippy-tile HTTP server on one CUDA device.
+"""Slippy-tile HTTP server: one CUDA device, or the C++ oracle on the CPU.
 
-The port's device backend, with the URL contract and serving loop of
-`osm_renderer_tpu.server.http`: an async micro-batcher groups concurrent
+The port's server, with the URL contract and serving loop of
+`osm_renderer_tpu.server.http`.  `backend = "cpu"` renders each request
+on its own thread with the C++ oracle (`CpuDrawer`), as the original's
+CPU backend does.  `backend = "device"`: an async micro-batcher groups concurrent
 tile requests, `render_tiles_device` folds them per scale into batches
 (cold-heavy groups stream in pipelined sub-batches; chunk-dense groups
 halve on MAX_BATCH_CHUNKS).  A batch renders from the chunk arena
@@ -13,10 +15,8 @@ PNG-8 straight from the v2 wire where the native encoder is built; the
 others decode to RGB, and labeled tiles the device did not label (plain
 upload batches under `osm_ids`) get their labels composited on the host.
 
-The original module cannot be imported where fontTools is missing (it
-imports the original labeler at module level, and that labeler needs
-fontTools), so this module carries its own copy of that loop, cut to one
-device, with the port's fontTools-free labeler.
+Both backends label with the port's fontTools-free labeler; the device
+loop is the original's cut to one device.
 """
 
 from __future__ import annotations
@@ -27,12 +27,12 @@ import time
 from collections import OrderedDict
 from typing import Dict, List, Optional, Set, Tuple
 
-from osm_renderer_tpu import perfstats
-from osm_renderer_tpu.core.tile import MAX_ZOOM, Tile
-from osm_renderer_tpu.draw.drawer import CpuDrawer
-from osm_renderer_tpu.draw.png_writer import rgb_to_png
-from osm_renderer_tpu.geodata.reader import GeodataReader
-from osm_renderer_tpu.mapcss.styler import Styler
+from osm_renderer_tpu_torch import perfstats
+from osm_renderer_tpu_torch.core.tile import MAX_ZOOM, Tile
+from osm_renderer_tpu_torch.draw.drawer import CpuDrawer
+from osm_renderer_tpu_torch.draw.png_writer import rgb_to_png
+from osm_renderer_tpu_torch.geodata.reader import GeodataReader
+from osm_renderer_tpu_torch.mapcss.styler import Styler
 from osm_renderer_tpu_torch.parallel.renderer import (
     BatchRenderer,
     start_wire_copy,
@@ -68,8 +68,9 @@ def extract_tile_from_path(path: str) -> Optional[Tuple[Tile, int]]:
 
 
 class TileService:
-    """Device-backend tile service on one CUDA device (`device="cpu"`
-    runs the kernel's plain twin; only the tests ask for it)."""
+    """Tile service.  `backend="device"` renders on one CUDA device
+    (`device="cpu"` runs the kernels' plain versions; only the tests ask
+    for it); `backend="cpu"` renders each tile with the C++ oracle."""
 
     # Cold-heavy groups stream in sub-batches of this many tiles: host
     # assembly of sub-batch N+1 overlaps the device work of sub-batch N.
@@ -80,6 +81,7 @@ class TileService:
         geodata_file: str,
         styler: Styler,
         stylesheet_dir: str,
+        backend: str = "device",
         osm_ids: Optional[Set[int]] = None,
         enable_labels: bool = True,
         precision: str = "fast",
@@ -88,9 +90,11 @@ class TileService:
         device: str = "cuda",
         gpus: int = 1,
     ):
-        if gpus != 1:
+        if backend not in ("device", "cpu"):
+            raise ValueError(f"unknown backend {backend!r} (use 'device' or 'cpu')")
+        if backend == "device" and gpus != 1:
             raise ValueError(f"serving on {gpus} GPUs is not supported yet (one GPU only)")
-        if precision != "fast":
+        if backend == "device" and precision != "fast":
             raise ValueError(
                 f"precision {precision!r} is not supported by the CUDA backend (only 'fast')"
             )
@@ -98,25 +102,31 @@ class TileService:
         self.reader = GeodataReader.load(geodata_file)
         self.styler = styler
         self.osm_ids = osm_ids
-        self.backend = "device"
+        self.backend = backend
         self.png_level = png_level
         # Served-PNG LRU: geodata and stylesheet are immutable for the
-        # server's lifetime (off under the osm_ids debug filter).
+        # server's lifetime (off under the osm_ids debug filter, and on
+        # the CPU backend to keep the reference's semantics).
         self._png_cache: "OrderedDict" = OrderedDict()
         self._png_cache_lock = threading.Lock()
-        self.png_cache_tiles = 0 if osm_ids else png_cache_tiles
+        self.png_cache_tiles = 0 if (osm_ids or backend != "device") else png_cache_tiles
         self.labeler = None
         if enable_labels:
             from osm_renderer_tpu_torch.draw.labels.labeler import Labeler
 
+            # The CPU backend places labels per glyph, uncached, like the
+            # reference.
             self.labeler = Labeler(
-                icon_base_path=stylesheet_dir, use_atlas=True,
-                label_cache_tiles=0 if osm_ids else 512,
+                icon_base_path=stylesheet_dir, use_atlas=backend == "device",
+                label_cache_tiles=0 if (osm_ids or backend != "device") else 512,
             )
         self.perf_stats = perfstats.PerfStats()
         self._perf_lock = threading.Lock()
         self._local = threading.local()
         self._stylesheet_dir = stylesheet_dir
+        self.batch_renderer = None
+        if backend == "cpu":
+            return
         self.device = resolve_device(device)
         self.batch_renderer = BatchRenderer(
             styler, stylesheet_dir=stylesheet_dir, tile_bucket=True,
@@ -132,7 +142,7 @@ class TileService:
         kernels, fills the chunk and label caches and learns the serving
         palette from its v1 wire; the second takes the v2 wire.
         Failures raise."""
-        if not len(self.reader.tiles):
+        if self.backend != "device" or not len(self.reader.tiles):
             return 0
         xs = self.reader.tiles["x"] >> 3
         ys = self.reader.tiles["y"] >> 3
@@ -168,6 +178,18 @@ class TileService:
             drawer = CpuDrawer(labeler=self.labeler, stylesheet_dir=self._stylesheet_dir)
             self._local.drawer = drawer
         return drawer
+
+    def render_tile_cpu(self, tile: Tile, scale: int) -> bytes:
+        perfstats.start_tile(tile.zoom)
+        with perfstats.measure("Get tile entities"):
+            entities = self.reader.get_entities_in_tile_with_neighbors(tile, self.osm_ids)
+        with perfstats.measure("Draw tile"):
+            rgb = self._cpu_drawer().draw_to_pixels(entities, tile, scale, self.styler)
+        with perfstats.measure("RGB triples to PNG"):
+            png = rgb_to_png(rgb, self.png_level)
+        with self._perf_lock:
+            perfstats.finish_tile(self.perf_stats)
+        return png
 
     def _dispatch_group_device(self, tiles_entities, scale: int, t_prep0: float,
                                compacts=None):
@@ -363,7 +385,7 @@ async def run_server(
                     if not fut.done():
                         fut.set_exception(e)
 
-    batcher_task = asyncio.create_task(batcher())
+    batcher_task = asyncio.create_task(batcher()) if service.backend == "device" else None
 
     async def handle(reader: asyncio.StreamReader, writer: asyncio.StreamWriter):
         try:
@@ -386,10 +408,12 @@ async def run_server(
                 return
             tile, scale = parsed
             png = service.png_cache_get(tile, scale)
-            if png is None:
+            if png is None and service.backend == "device":
                 fut = loop.create_future()
                 await batch_queue.put((tile, scale, fut))
                 png = await fut
+            elif png is None:
+                png = await asyncio.to_thread(service.render_tile_cpu, tile, scale)
             await _respond(writer, png, "image/png")
         except (ConnectionResetError, BrokenPipeError):
             pass
@@ -404,7 +428,8 @@ async def run_server(
     try:
         await shutdown_event.wait()
     finally:
-        batcher_task.cancel()
+        if batcher_task is not None:
+            batcher_task.cancel()
         server.close()
         await server.wait_closed()
 

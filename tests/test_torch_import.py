@@ -1,37 +1,36 @@
-"""The port imports without jax, and asks for no device it cannot get."""
+"""The port imports without jax, fontTools or the JAX package, serves
+with both backends under that guard, and asks for no device it cannot
+get."""
 
 import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
 from tests.conftest import REPO_ROOT
+from tests.fixtures import MINI_OSM
 
-PORT_MODULES = [
-    "osm_renderer_tpu_torch",
-    "osm_renderer_tpu_torch.utils.torch_setup",
-    "osm_renderer_tpu_torch.ops.chunk_layout",
-    "osm_renderer_tpu_torch.ops.build",
-    "osm_renderer_tpu_torch.ops.render_cuda",
-    "osm_renderer_tpu_torch.ops.rle_layout",
-    "osm_renderer_tpu_torch.ops.rle_cuda",
-    "osm_renderer_tpu_torch.parallel.arena",
-    "osm_renderer_tpu_torch.parallel.label_slab",
-    "osm_renderer_tpu_torch.draw.labels.font",
-    "osm_renderer_tpu_torch.draw.labels.text_placer",
-    "osm_renderer_tpu_torch.draw.labels.atlas",
-    "osm_renderer_tpu_torch.draw.labels.labeler",
-    "osm_renderer_tpu_torch.draw.native_assembler",
-    "osm_renderer_tpu_torch.parallel.renderer",
-    "osm_renderer_tpu_torch.server.http",
-    "osm_renderer_tpu_torch.cli.renderer_main",
-    "chip_smoke",
-]
 
-# Refuses jax (and, for the second case, fontTools, which the GPU host
-# may lack: the device server must import, and label a tile, without it).
+def _port_modules():
+    """Every module of the port (found on disk, imported by nothing here),
+    then chip_smoke."""
+    root = os.path.join(REPO_ROOT, "osm_renderer_tpu_torch")
+    mods = []
+    for d, _, names in os.walk(root):
+        pkg = os.path.relpath(d, REPO_ROOT).replace(os.sep, ".")
+        mods += [pkg if f == "__init__.py" else f"{pkg}.{f[:-3]}"
+                 for f in sorted(names) if f.endswith(".py")]
+    return sorted(mods) + ["chip_smoke"]
+
+
+PORT_MODULES = _port_modules()
+
+# Refuses the named top-level packages: always jax and the JAX package,
+# and for the second case fontTools, which the GPU host may lack (the
+# servers must import, and label a tile, without it).
 _GUARD = """
 import importlib, importlib.abc, sys
 BLOCKED = {blocked!r}
@@ -44,47 +43,99 @@ sys.meta_path.insert(0, Guard())
 sys.path.insert(0, {root!r})
 for m in {modules!r}:
     importlib.import_module(m)
-{label}
+{serve}
 assert not [m for m in sys.modules if m.split(".")[0] in BLOCKED]
 print("IMPORTED", len({modules!r}))
 """
 
-# The port's labeler places the mini fixture's labels (a z16 tile that
-# carries some) with the guard still in place.
-_LABEL = """
+# With the guard still in place: the port's importer, styler and labeler
+# on the mini fixture, then one labeled z16 tile from each backend of the
+# port's server (backend = device on the kernels' plain versions, and
+# backend = cpu, the C++ oracle); both PNGs go to files.
+_SERVE = """
 import tempfile
-from osm_renderer_tpu.core.tile import Tile, coords_to_max_zoom_tile
-from osm_renderer_tpu.mapcss.parser import parse_file
-from osm_renderer_tpu.mapcss.styler import Styler
+from osm_renderer_tpu_torch.core.tile import Tile, coords_to_max_zoom_tile
 from osm_renderer_tpu_torch.draw.labels.labeler import Labeler
-from tests.fixtures import build_mini_reader
+from osm_renderer_tpu_torch.geodata.importer import import_osm
+from osm_renderer_tpu_torch.mapcss.parser import parse_file
+from osm_renderer_tpu_torch.mapcss.styler import Styler
+from osm_renderer_tpu_torch.server.http import TileService
 sheets = {sheets!r}
-reader = build_mini_reader(tempfile.mkdtemp())
+tmp = tempfile.mkdtemp()
+with open(tmp + "/mini.osm", "w") as f:
+    f.write({osm!r})
+import_osm(tmp + "/mini.osm", tmp + "/mini.bin")
 styler = Styler(parse_file(sheets, "default.mapcss"), "josm")
 t18 = coords_to_max_zoom_tile(47.1412, 9.5215)
 tile = Tile(16, t18.x >> 2, t18.y >> 2)
-ents = reader.get_entities_in_tile_with_neighbors(tile)
+device = TileService(tmp + "/mini.bin", styler, sheets, backend="device", device="cpu")
+cpu = TileService(tmp + "/mini.bin", styler, sheets, backend="cpu")
+ents = cpu.reader.get_entities_in_tile_with_neighbors(tile)
 compact = Labeler(icon_base_path=sheets).ensure_layer(ents, tile, 1.0, styler, 256)
 assert compact is not None and compact[5].max() > 0, "no label placed"
 print("LABELED", compact[1] - compact[0], "rows")
+png_dev = device.render_tiles_device([(tile, 1)])[0]
+assert device.batch_renderer.batch_counts["labeled_tiles"] == 1
+assert cpu.batch_renderer is None and cpu.warmup() == 0
+png_cpu = cpu.render_tile_cpu(tile, 1)
+for path, png in (({out_dev!r}, png_dev), ({out_cpu!r}, png_cpu)):
+    with open(path, "wb") as f:
+        f.write(png)
+print("SERVED", len(png_dev), len(png_cpu))
 """
 
 
-@pytest.mark.parametrize("blocked", [("jax", "jaxlib"), ("jax", "jaxlib", "fontTools")],
+def _jax_cpu_server_png(tmp_path):
+    """The JAX package's CPU server on the same labeled tile."""
+    from osm_renderer_tpu.core.tile import Tile, coords_to_max_zoom_tile
+    from osm_renderer_tpu.mapcss.parser import parse_file
+    from osm_renderer_tpu.mapcss.styler import Styler
+    from osm_renderer_tpu.server.http import TileService
+    from tests.fixtures import build_mini_reader
+
+    sheets = os.path.join(REPO_ROOT, "assets", "stylesheets")
+    tmp_path.mkdir()
+    build_mini_reader(tmp_path)
+    styler = Styler(parse_file(sheets, "default.mapcss"), "josm")
+    svc = TileService(str(tmp_path / "mini.bin"), styler, sheets, backend="cpu")
+    t18 = coords_to_max_zoom_tile(47.1412, 9.5215)
+    return svc.render_tile_cpu(Tile(16, t18.x >> 2, t18.y >> 2), 1)
+
+
+@pytest.mark.parametrize("blocked", [("jax", "jaxlib", "osm_renderer_tpu"),
+                                     ("jax", "jaxlib", "fontTools", "osm_renderer_tpu")],
                          ids=["no_jax", "no_jax_no_fonttools"])
-def test_port_imports_without_jax(blocked):
-    label = ""
+def test_port_imports_without_jax(blocked, tmp_path):
+    """Every port module imports under the guard.  With fontTools refused
+    too, both backends serve a labeled tile: the CPU backend's PNG is
+    byte-identical to the JAX package's CPU server.  (The device
+    backend's labels come from the glyph atlas, not the per-glyph path of
+    the CPU backend; test_torch_serving.py holds its pixels to the JAX
+    device server.)"""
+    serve = ""
+    out_dev, out_cpu = str(tmp_path / "device.png"), str(tmp_path / "cpu.png")
     if "fontTools" in blocked:
-        label = _LABEL.format(sheets=os.path.join(REPO_ROOT, "assets", "stylesheets"))
+        serve = _SERVE.format(sheets=os.path.join(REPO_ROOT, "assets", "stylesheets"),
+                              osm=MINI_OSM, out_dev=out_dev, out_cpu=out_cpu)
     code = _GUARD.format(blocked=set(blocked), root=REPO_ROOT, modules=PORT_MODULES,
-                         label=label)
+                         serve=serve)
     env = dict(os.environ)
     env.pop("XLA_FLAGS", None)
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO_ROOT, env=env,
-                          capture_output=True, text=True, timeout=300)
+                          capture_output=True, text=True, timeout=600)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert f"IMPORTED {len(PORT_MODULES)}" in proc.stdout
-    assert ("LABELED" in proc.stdout) == ("fontTools" in blocked)
+    assert len(PORT_MODULES) > 40
+    assert ("SERVED" in proc.stdout) == ("fontTools" in blocked)
+    if "fontTools" not in blocked:
+        return
+    from PIL import Image
+
+    want = _jax_cpu_server_png(tmp_path / "jax")
+    with open(out_cpu, "rb") as f:
+        assert f.read() == want
+    dev, cpu = (np.asarray(Image.open(p).convert("RGB")) for p in (out_dev, out_cpu))
+    assert dev.shape == cpu.shape == (256, 256, 3)
 
 
 def test_resolve_device_never_falls_back():

@@ -13,23 +13,16 @@ interpret), and the port's labeled entry is within 1 per channel of it
 with identical membership outside the label rows.
 """
 
-import os
-
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from osm_renderer_tpu.core.tile import Tile, coords_to_max_zoom_tile
-from osm_renderer_tpu.mapcss.parser import parse_file
-from osm_renderer_tpu.mapcss.styler import Styler
 from osm_renderer_tpu.parallel import label_slab as JLS
+from osm_renderer_tpu_torch.core.tile import Tile, coords_to_max_zoom_tile
 from osm_renderer_tpu_torch.parallel import label_slab as LS
 
-from tests.conftest import REPO_ROOT
-from tests.fixtures import build_mini_reader
-
-STYLESHEET_DIR = os.path.join(REPO_ROOT, "assets", "stylesheets")
+from tests.test_torch_helpers import STYLESHEET_DIR, port_mini_reader, port_styler
 
 
 def _random_compact(rng, ts: int):
@@ -172,8 +165,8 @@ def labeled_scene(tmp_path_factory):
     compact label layers from the port's labeler."""
     from osm_renderer_tpu_torch.draw.labels.labeler import Labeler
 
-    reader = build_mini_reader(tmp_path_factory.mktemp("slab"))
-    styler = Styler(parse_file(STYLESHEET_DIR, "default.mapcss"), "josm")
+    reader = port_mini_reader(tmp_path_factory.mktemp("slab"))
+    styler = port_styler()
     t18 = coords_to_max_zoom_tile(47.1412, 9.5215)
     tiles = [Tile(z, t18.x >> (18 - z), t18.y >> (18 - z)) for z in range(14, 18)]
     te = [(reader.get_entities_in_tile_with_neighbors(t), t) for t in tiles]
@@ -183,21 +176,33 @@ def labeled_scene(tmp_path_factory):
     return styler, te, compacts, labeler
 
 
-def test_labeled_entry_matches_jax_interpret(labeled_scene):
+def test_labeled_entry_matches_jax_interpret(labeled_scene, tmp_path):
     """Tolerances: the torch blit over the JAX unlabeled output is
     byte-identical to the JAX labeled entry; the port's labeled entry is
     within 1 per channel of it (the render twin's bar), with the same
-    painted pixels outside the label rows."""
-    from osm_renderer_tpu.parallel.renderer import BatchRenderer as JaxRenderer
+    painted pixels outside the label rows.  The JAX side takes its own
+    reader, styler and labeler's layers."""
+    from osm_renderer_tpu.core.tile import Tile as JaxTile
+    from osm_renderer_tpu.draw.labels.labeler import Labeler as JaxLabeler
+    from osm_renderer_tpu.mapcss.parser import parse_file
+    from osm_renderer_tpu.mapcss.styler import Styler
     from osm_renderer_tpu.ops.render_pallas import render_arena_planar_labeled as jax_labeled
+    from osm_renderer_tpu.parallel.renderer import BatchRenderer as JaxRenderer
     from osm_renderer_tpu_torch.parallel.renderer import BatchRenderer
+    from tests.fixtures import build_mini_reader
 
     styler, te, compacts, _ = labeled_scene
-    ref = JaxRenderer(styler, backend="pallas", interpret=True, stylesheet_dir=STYLESHEET_DIR,
+    jreader = build_mini_reader(tmp_path)
+    jstyler = Styler(parse_file(STYLESHEET_DIR, "default.mapcss"), "josm")
+    jte = [(jreader.get_entities_in_tile_with_neighbors(JaxTile(t.zoom, t.x, t.y)),
+            JaxTile(t.zoom, t.x, t.y)) for _, t in te]
+    jlabeler = JaxLabeler(icon_base_path=STYLESHEET_DIR)
+    jcompacts = [jlabeler.ensure_layer(e, t, 1.0, jstyler, 256) for e, t in jte]
+    ref = JaxRenderer(jstyler, backend="pallas", interpret=True, stylesheet_dir=STYLESHEET_DIR,
                       chunk_cache_tiles=16, arena=True)
     port = BatchRenderer(styler, stylesheet_dir=STYLESHEET_DIR, chunk_cache_tiles=16,
                          device="cpu", arena=True)
-    jp = ref.prepare(te, 1, label_layers=compacts)
+    jp = ref.prepare(jte, 1, label_layers=jcompacts)
     pp = port.prepare(te, 1, label_layers=compacts)
     assert pp.device_labeled == jp.device_labeled == (1, 2, 3)
     np.testing.assert_array_equal(pp.arena_packed, jp.arena_packed)
@@ -285,4 +290,4 @@ def test_labeled_entry_refuses_bad_rows(labeled_scene):
     for rows, pl in ((bad, plane), (p.label_rows[:2], plane), (p.label_rows, plane[:, :1])):
         with pytest.raises(RC.BatchLayoutError):
             RC.render_arena_planar_labeled(p.arena_packed, rows, arena, prof, tot, pat,
-                                           p.canvas_rgb, p.ts, p.chunk, p.arena_it, pl)
+                                           p.canvas_rgb, p.ts, p.chunk, pl)

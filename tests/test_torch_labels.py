@@ -12,21 +12,20 @@ identical on two tiles.
 """
 
 import os
-import subprocess
-import sys
 
 import numpy as np
 import pytest
 
-from osm_renderer_tpu.core.tile import Tile
+from osm_renderer_tpu.core.tile import Tile as JaxTile
 from osm_renderer_tpu.draw.labels import font as jfont
 from osm_renderer_tpu.mapcss.parser import parse_file
-from osm_renderer_tpu.mapcss.styler import Styler
+from osm_renderer_tpu.mapcss.styler import Styler as JaxStyler
+from osm_renderer_tpu_torch.core.tile import Tile
 from osm_renderer_tpu_torch.draw.labels import font as pfont
 
 from tests.conftest import REPO_ROOT
+from tests.test_torch_helpers import STYLESHEET_DIR, make_minicity_osm, port_styler
 
-STYLESHEET_DIR = os.path.join(REPO_ROOT, "assets", "stylesheets")
 FONT = os.path.join(REPO_ROOT, "assets", "fonts", "NotoSans-Regular.ttf")
 N_GLYPH_SLICES = 4
 
@@ -127,28 +126,35 @@ def test_font_refuses_unsupported_cmap(tmp_path):
 
 @pytest.fixture(scope="module")
 def city(tmp_path_factory):
-    from osm_renderer_tpu.geodata.importer import import_osm
-    from osm_renderer_tpu.geodata.reader import GeodataReader
+    """(port reader, JAX-package reader) of the minicity, each imported by
+    its own package."""
+    from osm_renderer_tpu.geodata.importer import import_osm as jax_import
+    from osm_renderer_tpu.geodata.reader import GeodataReader as JaxReader
+    from osm_renderer_tpu_torch.geodata.importer import import_osm
+    from osm_renderer_tpu_torch.geodata.reader import GeodataReader
 
     tmp = tmp_path_factory.mktemp("labels_city")
-    osm = str(tmp / "minicity.osm")
-    subprocess.run([sys.executable, os.path.join(REPO_ROOT, "tools", "make_fixture.py"), osm,
-                    "--blocks", "24"], check=True, stdout=subprocess.DEVNULL)
+    osm = make_minicity_osm(tmp)
     import_osm(osm, str(tmp / "minicity.bin"))
-    return GeodataReader.load(str(tmp / "minicity.bin"))
+    jax_import(osm, str(tmp / "minicity_jax.bin"))
+    return (GeodataReader.load(str(tmp / "minicity.bin")),
+            JaxReader.load(str(tmp / "minicity_jax.bin")))
 
 
 @pytest.fixture(scope="module")
 def styler():
-    return Styler(parse_file(STYLESHEET_DIR, "default.mapcss"), "josm")
+    """(port styler, JAX-package styler)."""
+    return port_styler(), JaxStyler(parse_file(STYLESHEET_DIR, "default.mapcss"), "josm")
 
 
 def _tiles(reader, zoom, n):
+    """[(port tile, JAX-package tile)] near the middle of the city."""
     tx = reader.tiles["x"] >> (18 - zoom)
     ty = reader.tiles["y"] >> (18 - zoom)
     u = sorted(set(zip(tx.tolist(), ty.tolist())))
     mid = len(u) // 2
-    return [Tile(zoom, *xy) for xy in u[max(0, mid - n // 2): mid - n // 2 + n]]
+    return [(Tile(zoom, *xy), JaxTile(zoom, *xy))
+            for xy in u[max(0, mid - n // 2): mid - n // 2 + n]]
 
 
 def _same_compact(got, want):
@@ -168,12 +174,14 @@ def test_label_layers_byte_identical(city, styler, scale):
 
     port = Labeler(icon_base_path=STYLESHEET_DIR, use_atlas=True)
     ref = JaxLabeler(icon_base_path=STYLESHEET_DIR, use_atlas=True)
+    (reader, jreader), (pstyler, jstyler) = city, styler
     n_labeled = 0
     for zoom in range(13, 18):
-        for t in _tiles(city, zoom, 8 if scale == 1 else 4):
-            ents = city.get_entities_in_tile_with_neighbors(t)
-            got = port.ensure_layer(ents, t, float(scale), styler, 256 * scale)
-            want = ref.ensure_layer(ents, t, float(scale), styler, 256 * scale)
+        for t, jt in _tiles(reader, zoom, 8 if scale == 1 else 4):
+            ents = reader.get_entities_in_tile_with_neighbors(t)
+            jents = jreader.get_entities_in_tile_with_neighbors(jt)
+            got = port.ensure_layer(ents, t, float(scale), pstyler, 256 * scale)
+            want = ref.ensure_layer(jents, jt, float(scale), jstyler, 256 * scale)
             _same_compact(got, want)
             n_labeled += want is not None
     assert n_labeled >= 8
@@ -187,11 +195,13 @@ def test_exact_composite_identical(city, styler):
 
     port = Labeler(icon_base_path=STYLESHEET_DIR, use_atlas=False)
     ref = JaxLabeler(icon_base_path=STYLESHEET_DIR, use_atlas=False)
+    (reader, jreader), (pstyler, jstyler) = city, styler
     rng = np.random.default_rng(3)
-    for t in _tiles(city, 16, 1) + _tiles(city, 17, 1):
-        ents = city.get_entities_in_tile_with_neighbors(t)
+    for t, jt in _tiles(reader, 16, 1) + _tiles(reader, 17, 1):
+        ents = reader.get_entities_in_tile_with_neighbors(t)
+        jents = jreader.get_entities_in_tile_with_neighbors(jt)
         base = rng.integers(0, 256, (256, 256, 3)).astype(np.uint8)
-        got = port.composite_labels(base, ents, t, 1.0, styler)
-        want = ref.composite_labels(base, ents, t, 1.0, styler)
+        got = port.composite_labels(base, ents, t, 1.0, pstyler)
+        want = ref.composite_labels(base, jents, jt, 1.0, jstyler)
         np.testing.assert_array_equal(got, want)
         assert not np.array_equal(got, base)

@@ -18,25 +18,26 @@ import torch
 
 import jax.numpy as jnp
 
-from osm_renderer_tpu.draw import primitives as P
+from osm_renderer_tpu.draw import primitives as JP
 from osm_renderer_tpu.ops import render_pallas as RP
-from osm_renderer_tpu.ops.coverage_np import LINE_CAP_BUTT, LINE_CAP_ROUND, LINE_CAP_SQUARE
+from osm_renderer_tpu_torch.draw import primitives as P
 from osm_renderer_tpu_torch.ops import chunk_layout as CL
+from osm_renderer_tpu_torch.ops.coverage_np import LINE_CAP_BUTT, LINE_CAP_ROUND, LINE_CAP_SQUARE
 from osm_renderer_tpu_torch.ops import render_cuda as RC
 from osm_renderer_tpu_torch.parallel.renderer import PreparedBatch, pad_batch_to
 
 from tests.test_coverage_parity import CANVAS, make_polygon, make_polyline, oracle_render, rand_color
 
 
-def _stroke(pairs, w, c, dashes, cap, op=1.0):
+def _stroke(prim, pairs, w, c, dashes, cap, op=1.0):
     o = {"kind": "stroke", "pairs": pairs, "color": c, "opacity": op, "width": w,
          "dashes": dashes, "cap": cap, "use_caps_for_dashes": True}
-    return o, P.make_stroke_prim(pairs, w, c, op, dashes, cap, True)
+    return o, prim.make_stroke_prim(pairs, w, c, op, dashes, cap, True)
 
 
-def _fill(edges, c, op):
+def _fill(prim, edges, c, op):
     return ({"kind": "fill", "edges": edges, "color": c, "opacity": op},
-            P.FillPrim(kind="fill", color=c, opacity=op, edges=edges))
+            prim.FillPrim(kind="fill", color=c, opacity=op, edges=edges))
 
 
 def _scene(pairs_list):
@@ -45,81 +46,82 @@ def _scene(pairs_list):
 
 
 # Scene builders (the tests/test_pallas.py scenes).  Each returns
-# (oracle prims, device prims, ts, packed).
+# (oracle prims, device prims, ts, packed); the device prims are built by
+# `prim`, the port's primitives module unless the JAX package's is given.
 
-def scene_mixed():
+def scene_mixed(prim=P):
     rng = np.random.default_rng(5)
-    items = [_fill(make_polygon(rng), rand_color(rng), 0.9) for _ in range(4)]
+    items = [_fill(prim, make_polygon(rng), rand_color(rng), 0.9) for _ in range(4)]
     for _ in range(4):
         pairs = make_polyline(rng)
         c = rand_color(rng)
         cap = int(rng.choice([LINE_CAP_BUTT, LINE_CAP_ROUND, LINE_CAP_SQUARE]))
         dashes = [6.0, 3.0] if rng.integers(0, 2) else None
         w = float(rng.choice([1.0, 3.0, 6.5]))
-        items.append(_stroke(pairs, w, c, dashes, cap))
+        items.append(_stroke(prim, pairs, w, c, dashes, cap))
     return (*_scene(items), 256, False)
 
 
-def scene_round_capped_dash():
+def scene_round_capped_dash(prim=P):
     """Round-capped dashes: per-segment KIND_STROKE with the walk chain."""
     items = [
-        _stroke(np.array([[111, 202], [219, 34]]).reshape(1, 4), 6.0, (200, 10, 10),
+        _stroke(prim, np.array([[111, 202], [219, 34]]).reshape(1, 4), 6.0, (200, 10, 10),
                 [12.0, 6.0], LINE_CAP_ROUND),
-        _stroke(np.array([[20, 30, 240, 60], [240, 60, 180, 230]]), 3.0, (20, 90, 200),
+        _stroke(prim, np.array([[20, 30, 240, 60], [240, 60, 180, 230]]), 3.0, (20, 90, 200),
                 [6.0, 3.0], LINE_CAP_ROUND),
     ]
     return (*_scene(items), 256, True)
 
 
-def scene_row_blocks():
+def scene_row_blocks(prim=P):
     edges = np.array([[10, 31, 250, 31], [250, 31, 250, 97], [250, 97, 10, 97],
                       [10, 97, 10, 31]], dtype=np.int64)
-    items = [_fill(edges, (40, 90, 160), 1.0),
-             _stroke(np.array([[0, 64, 255, 64], [255, 64, 255, 255]]), 7.0, (200, 30, 30),
+    items = [_fill(prim, edges, (40, 90, 160), 1.0),
+             _stroke(prim, np.array([[0, 64, 255, 64], [255, 64, 255, 255]]), 7.0, (200, 30, 30),
                      None, LINE_CAP_ROUND, 0.8)]
     return (*_scene(items), 256, False)
 
 
-def scene_packed():
+def scene_packed(prim=P):
     rng = np.random.default_rng(21)
-    items = [_fill(make_polygon(rng), (217, 208, 201), 1.0) for _ in range(30)]
-    items += [_stroke(make_polyline(rng), 3.0, (255, 255, 255), None, LINE_CAP_BUTT)
+    items = [_fill(prim, make_polygon(rng), (217, 208, 201), 1.0) for _ in range(30)]
+    items += [_stroke(prim, make_polyline(rng), 3.0, (255, 255, 255), None, LINE_CAP_BUTT)
               for _ in range(12)]
     return (*_scene(items), 256, True)
 
 
-def scene_2x():
+def scene_2x(prim=P):
     rng = np.random.default_rng(17)
-    items = [_fill((make_polygon(rng) * 2).astype(np.int64), rand_color(rng), 1.0)
+    items = [_fill(prim, (make_polygon(rng) * 2).astype(np.int64), rand_color(rng), 1.0)
              for _ in range(3)]
-    items += [_stroke((make_polyline(rng) * 2).astype(np.int64), 6.0, rand_color(rng),
+    items += [_stroke(prim, (make_polyline(rng) * 2).astype(np.int64), 6.0, rand_color(rng),
                       [12.0, 6.0], LINE_CAP_ROUND) for _ in range(3)]
     return (*_scene(items), 512, True)
 
 
-def scene_fuzz(seed):
+def scene_fuzz(seed, prim=P):
     rng = np.random.default_rng(seed)
     dash_choices = [None, [6.0, 3.0], [2.0, 2.0], [10.0, 4.0, 2.0, 4.0]]
     items = []
     for _ in range(int(rng.integers(3, 8))):
         edges = make_polygon(rng)
         c = rand_color(rng)
-        items.append(_fill(edges, c, float(rng.choice([1.0, 0.7]))))
+        items.append(_fill(prim, edges, c, float(rng.choice([1.0, 0.7]))))
     for _ in range(int(rng.integers(3, 8))):
         pairs = make_polyline(rng)
         c = rand_color(rng)
         cap = int(rng.choice([LINE_CAP_BUTT, LINE_CAP_ROUND, LINE_CAP_SQUARE]))
         dashes = dash_choices[int(rng.integers(0, len(dash_choices)))]
         w = float(rng.choice([0.5, 1.0, 2.4, 3.0, 6.5, 11.0]))
-        items.append(_stroke(pairs, w, c, dashes, cap))
+        items.append(_stroke(prim, pairs, w, c, dashes, cap))
     return (*_scene(items), 256, True)
 
 
-def scene_4x_strokes():
+def scene_4x_strokes(prim=P):
     """ts = 1024 (@4x): every stroke takes the per-segment path."""
     rng = np.random.default_rng(41)
-    items = [_fill((make_polygon(rng) * 4).astype(np.int64), rand_color(rng), 1.0)]
-    items += [_stroke((make_polyline(rng) * 4).astype(np.int64), w, rand_color(rng), d, cap)
+    items = [_fill(prim, (make_polygon(rng) * 4).astype(np.int64), rand_color(rng), 1.0)]
+    items += [_stroke(prim, (make_polyline(rng) * 4).astype(np.int64), w, rand_color(rng), d, cap)
               for w, d, cap in ((8.0, None, LINE_CAP_BUTT), (12.0, [24.0, 12.0], LINE_CAP_ROUND),
                                 (4.0, [8.0, 8.0], LINE_CAP_SQUARE))]
     return (*_scene(items), 1024, True)
@@ -149,7 +151,12 @@ def test_twin_matches_pallas_interpret(scene):
     if scene is scene_round_capped_dash:
         assert CL.KIND_STROKE in pb.kind.tolist()
     got = twin_rgb(pb, ts)[0]
-    pbj = RP.PallasBatch(*(jnp.asarray(x) for x in pb))
+    _, prims_jax, _, _ = scene(JP)
+    jprofiles = JP.ProfileTable()
+    jstream = (JP.stream_tile_packed(prims_jax, jprofiles, RP.CH, None, size=ts)
+               if packed else JP.stream_tile(prims_jax, jprofiles, RP.CH))
+    pbj = RP.PallasBatch(*(jnp.asarray(x) for x in RP.build_pallas_batch([jstream], jprofiles,
+                                                                         ts, None)))
     canvas = jnp.array([c / 255.0 for c in CANVAS], dtype=jnp.float32)
     want = np.asarray(RP.render_batch_pallas(pbj, canvas, ts, 1, True))[0]
     diff = np.abs(want.astype(int) - got.astype(int))
@@ -177,16 +184,18 @@ def test_twin_matches_oracle(scene, frac):
 
 
 def _icon(tmp_path, seed, shape, lo):
+    """-> (rng, the port's icon cache for the twin, the JAX package's
+    icon for the oracle)."""
     from PIL import Image
 
-    from osm_renderer_tpu.draw.labels.icons import IconCache
+    from osm_renderer_tpu.draw.labels.icons import IconCache as JaxIconCache
+    from osm_renderer_tpu_torch.draw.labels.icons import IconCache
 
     rng = np.random.default_rng(seed)
     px = rng.integers(0, 256, size=shape + (4,), dtype=np.uint8)
     px[..., 3] = rng.integers(lo, 256, size=shape, dtype=np.uint8)
     Image.fromarray(px, "RGBA").save(tmp_path / "pat.png")
-    cache = IconCache(str(tmp_path))
-    return rng, cache, cache.get("pat.png")
+    return rng, IconCache(str(tmp_path)), JaxIconCache(str(tmp_path)).get("pat.png")
 
 
 def test_twin_icon_fill_matches_oracle(tmp_path):
@@ -344,3 +353,46 @@ def test_from_numpy_batch_tile_ranges():
     assert rng[0, 0] == 0 and rng[0, 1] == rng[1, 0] and rng[1, 1] == pb.kind.shape[0]
     assert (pb.tile_id[rng[0, 0]:rng[0, 1]] == 0).all()
     assert pb.first[rng[1, 0]] == 1
+
+
+@pytest.mark.parametrize("scene", [scene_mixed, scene_round_capped_dash, scene_packed,
+                                   lambda: scene_fuzz(11)],
+                         ids=["mixed", "round_capped_dash", "packed", "fuzz11"])
+def test_render_ignores_bytes_outside_the_bound(scene):
+    """chip_smoke.render_bound leaves out aux row 3, every lane of a
+    padding chunk, the lane fields a chunk's kind never reads and the
+    items past a chunk's last section end: scrambling them leaves the
+    render as it was."""
+    _, dev, ts, packed = scene()
+    pb = host_batch(dev, ts, packed)
+    b, canvas = RC.from_numpy_batch(pb, np.array(CANVAS, np.float32) / 255.0, "cpu")
+    want = RC.render_batch_planar(b, canvas, ts)
+    rng = np.random.default_rng(1)
+    geom, aux, trav, sprof, items = (t.clone() for t in (b.geom, b.aux, b.trav, b.sprof, b.items))
+    kind = b.chunk_i[:, RC.CI_KIND].numpy()
+
+    def scramble(t, sel, lo=-2**20, hi=2**20):
+        t[sel] = torch.from_numpy(rng.integers(lo, hi, t[sel].shape).astype(
+            np.float32 if t.dtype == torch.float32 else np.int32))
+
+    scramble(aux, (slice(None), 3))
+    fills = np.isin(kind, (CL.KIND_FILL, CL.KIND_FILL_IMAGE))
+    for t, sel in ((geom, kind == CL.KIND_PAD), (aux, kind == CL.KIND_PAD),
+                   (trav, ~np.isin(kind, (CL.KIND_STROKE, CL.KIND_STROKE_SOLID,
+                                          CL.KIND_STROKE_DASH))),
+                   (sprof, ~np.isin(kind, (CL.KIND_STROKE, CL.KIND_STROKE_DASH))),
+                   (aux, fills)):
+        if sel.any():
+            scramble(t, torch.from_numpy(sel))
+    geom[torch.from_numpy(fills), 3] = -7
+    # Solid items name no profile: any valid index renders the same.
+    solid = torch.from_numpy(kind == CL.KIND_STROKE_SOLID)
+    if solid.any():
+        scramble(sprof, solid, 0, b.profiles.shape[0])
+    end = b.isec[:, -1].numpy()
+    for c in range(items.shape[0]):
+        n = end[c] if kind[c] in (CL.KIND_STROKE_SOLID, CL.KIND_STROKE_DASH) else 0
+        scramble(items, (c, slice(int(n), None)))
+    got = RC.render_batch_planar(b._replace(geom=geom, aux=aux, trav=trav, sprof=sprof,
+                                            items=items), canvas, ts)
+    assert torch.equal(got, want)

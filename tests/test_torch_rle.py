@@ -12,25 +12,18 @@ originals, and the vectorised v2 decode equals
 versions on the card by chip_smoke.py.
 """
 
-import os
-
 import numpy as np
 import pytest
 import torch
 
-from osm_renderer_tpu.core.tile import Tile, coords_to_max_zoom_tile
-from osm_renderer_tpu.mapcss.parser import parse_file
-from osm_renderer_tpu.mapcss.styler import Styler
 from osm_renderer_tpu.ops import rle
+from osm_renderer_tpu_torch.core.tile import Tile, coords_to_max_zoom_tile
 from osm_renderer_tpu_torch.ops import rle_cuda as RLE
 from osm_renderer_tpu_torch.ops import rle_layout as RL
 from osm_renderer_tpu_torch.ops.render_cuda import BatchLayoutError
 
-from tests.conftest import REPO_ROOT
-from tests.fixtures import build_mini_reader
 from tests.test_rle import _planar_from_rgb, _random_tiles
-
-STYLESHEET_DIR = os.path.join(REPO_ROOT, "assets", "stylesheets")
+from tests.test_torch_helpers import STYLESHEET_DIR, port_mini_reader, port_styler
 
 
 def _rgb_cases():
@@ -58,8 +51,8 @@ def rendered():
 
     from osm_renderer_tpu_torch.parallel.renderer import BatchRenderer
 
-    reader = build_mini_reader(tempfile.mkdtemp())
-    styler = Styler(parse_file(STYLESHEET_DIR, "default.mapcss"), "josm")
+    reader = port_mini_reader(tempfile.mkdtemp())
+    styler = port_styler()
     t18 = coords_to_max_zoom_tile(47.1412, 9.5215)
     tiles = [Tile(z, t18.x >> (18 - z), t18.y >> (18 - z)) for z in (15, 16, 17)]
     te = [(reader.get_entities_in_tile_with_neighbors(t), t) for t in tiles]

@@ -18,15 +18,11 @@ import numpy as np
 import pytest
 from PIL import Image
 
-from osm_renderer_tpu.core.tile import Tile, coords_to_max_zoom_tile
-from osm_renderer_tpu.mapcss.parser import parse_file
-from osm_renderer_tpu.mapcss.styler import Styler
+from osm_renderer_tpu_torch.core.tile import Tile, coords_to_max_zoom_tile
 from osm_renderer_tpu_torch.server.http import TileService, extract_tile_from_path, run_server
 
 from tests.conftest import REPO_ROOT
-from tests.fixtures import MINI_OSM
-
-STYLESHEET_DIR = os.path.join(REPO_ROOT, "assets", "stylesheets")
+from tests.test_torch_helpers import STYLESHEET_DIR, port_bin, port_styler
 
 
 def _rgb(png: bytes) -> np.ndarray:
@@ -36,20 +32,38 @@ def _rgb(png: bytes) -> np.ndarray:
 
 @pytest.fixture(scope="module")
 def mini_bin(tmp_path_factory):
-    from osm_renderer_tpu.geodata.importer import import_osm
+    """The mini fixture imported by the port's importer."""
+    return port_bin(tmp_path_factory.mktemp("serve"))
 
-    tmp = tmp_path_factory.mktemp("serve")
-    osm_path = os.path.join(str(tmp), "mini.osm")
-    with open(osm_path, "w") as f:
-        f.write(MINI_OSM)
+
+@pytest.fixture(scope="module")
+def jax_mini_bin(tmp_path_factory):
+    """The same scene imported by the JAX package's importer."""
+    from osm_renderer_tpu.geodata.importer import import_osm
+    from tests.test_torch_helpers import write_osm
+
+    tmp = tmp_path_factory.mktemp("serve_jax")
     bin_path = os.path.join(str(tmp), "mini.bin")
-    import_osm(osm_path, bin_path)
+    import_osm(write_osm(tmp), bin_path)
     return bin_path
 
 
 @pytest.fixture(scope="module")
 def styler():
+    return port_styler()
+
+
+def _jax_styler():
+    from osm_renderer_tpu.mapcss.parser import parse_file
+    from osm_renderer_tpu.mapcss.styler import Styler
+
     return Styler(parse_file(STYLESHEET_DIR, "default.mapcss"), "josm")
+
+
+def _jax_tile(t):
+    from osm_renderer_tpu.core.tile import Tile as JaxTile
+
+    return JaxTile(t.zoom, t.x, t.y)
 
 
 def _zoom_tiles():
@@ -71,27 +85,30 @@ def _spy_device_labeled(renderer) -> list:
     return seen
 
 
-def test_port_server_matches_jax_device_server(mini_bin, styler):
+def test_port_server_matches_jax_device_server(mini_bin, jax_mini_bin, styler):
     """Same tiles through the port and the JAX device backend (both: arena
-    and device label blit; the JAX one in Pallas interpret): the same
-    tiles labeled on the device, <= 1/255 per channel."""
+    and device label blit; the JAX one in Pallas interpret, with its own
+    geodata and styler): the same tiles labeled on the device, <= 1/255
+    per channel."""
     from osm_renderer_tpu.parallel.renderer import BatchRenderer as JaxBatchRenderer
     from osm_renderer_tpu.server.http import TileService as JaxTileService
 
     tiles = _zoom_tiles()
+    jstyler = _jax_styler()
     port = TileService(mini_bin, styler, STYLESHEET_DIR, device="cpu", png_cache_tiles=0)
-    ref = JaxTileService(mini_bin, styler, STYLESHEET_DIR, backend="device", png_cache_tiles=0)
+    ref = JaxTileService(jax_mini_bin, jstyler, STYLESHEET_DIR, backend="device",
+                         png_cache_tiles=0)
     ref.devices = ref.devices[:1]
     ref.batch_renderer = JaxBatchRenderer(
-        styler, backend="pallas", interpret=True, stylesheet_dir=STYLESHEET_DIR,
+        jstyler, backend="pallas", interpret=True, stylesheet_dir=STYLESHEET_DIR,
         tile_bucket=True, chunk_cache_tiles=512, arena=True,
     )
     ref.batch_renderers = [ref.batch_renderer]
     port_labeled = _spy_device_labeled(port.batch_renderer)
     ref_labeled = _spy_device_labeled(ref.batch_renderer)
     got = port.render_tiles_device([(t, 1) for t in tiles])
-    want = ref.render_tiles_device([(t, 1) for t in tiles])
-    assert port_labeled and port_labeled == ref_labeled
+    want = ref.render_tiles_device([(_jax_tile(t), 1) for t in tiles])
+    assert port_labeled and [tuple(t) for t in port_labeled] == [tuple(t) for t in ref_labeled]
     # The first batch learned the palette (v1 wire); the second, warm
     # from the chunk arena, ships on the v2 wire.
     got_v2 = port.render_tiles_device([(t, 1) for t in tiles])
@@ -150,17 +167,21 @@ def test_port_slab_reset_between_prepare_and_render_raises(mini_bin, styler):
     assert r.render_prepared_planar(again).shape == (prepared.chunk, 4, 256, 256)
 
 
-def test_port_server_matches_oracle_at_2x(mini_bin, styler):
-    """Unlabeled @2x tiles equal the C++ oracle within 1/255."""
+def test_port_server_matches_oracle_at_2x(mini_bin, jax_mini_bin, styler):
+    """Unlabeled @2x tiles equal the C++ oracle (the JAX package's
+    CpuDrawer over its own geodata and styler) within 1/255."""
     from osm_renderer_tpu.draw.drawer import CpuDrawer
+    from osm_renderer_tpu.geodata.reader import GeodataReader as JaxReader
 
     port = TileService(mini_bin, styler, STYLESHEET_DIR, device="cpu", enable_labels=False)
     tiles = _zoom_tiles()
     pngs = port.render_tiles_device([(t, 2) for t in tiles])
     drawer = CpuDrawer(stylesheet_dir=STYLESHEET_DIR)
+    jreader, jstyler = JaxReader.load(jax_mini_bin), _jax_styler()
     for t, png in zip(tiles, pngs):
-        want = drawer.draw_to_pixels(port.reader.get_entities_in_tile_with_neighbors(t), t, 2,
-                                     styler)
+        jt = _jax_tile(t)
+        want = drawer.draw_to_pixels(jreader.get_entities_in_tile_with_neighbors(jt), jt, 2,
+                                     jstyler)
         got = _rgb(png)
         assert got.shape == (512, 512, 3)
         assert np.abs(got.astype(int) - want.astype(int)).max() <= 1, t
@@ -325,7 +346,7 @@ def _wire_renderer(styler):
 
 
 def _tiles_entities(mini_bin):
-    from osm_renderer_tpu.geodata.reader import GeodataReader
+    from osm_renderer_tpu_torch.geodata.reader import GeodataReader
 
     reader = GeodataReader.load(mini_bin)
     return [(reader.get_entities_in_tile_with_neighbors(t), t) for t in _zoom_tiles()[2:]]
@@ -382,7 +403,7 @@ def test_port_server_without_native_decoder(mini_bin, styler, monkeypatch):
     """Where the native PNG library is missing, v2 tiles decode through the
     vectorised decoder (never png_writer's per-word loop) and ship as RGB
     PNGs with the pixels of a server that has the library."""
-    from osm_renderer_tpu.draw import png_writer
+    from osm_renderer_tpu_torch.draw import png_writer
 
     tiles = [(t, s) for t in _zoom_tiles() for s in (1, 2)]
     with_native = TileService(mini_bin, styler, STYLESHEET_DIR, device="cpu",
