@@ -17,8 +17,9 @@ Phases (any failure exits non-zero; no phase is skipped):
    a z13/z14 batch (per-segment strokes), an oversize-fill scene (host
    layers) and an icon-fill scene (pattern blend).
    Bar: byte-identical (max |diff| 0, no pixel painted by one and not
-   the other).  Kernel time (CUDA events, mean of 5 after a warm launch)
-   beside the twin's time on the same batch, the batch's bound (the bytes
+   the other).  Kernel time (CUDA events, mean of 5 after a warm launch,
+   and device time with the host's enqueue hidden, `device_ms`) beside
+   the twin's time on the same batch, the batch's bound (the bytes
    the function needs from the batch's data and writes, over 3.35 TB/s,
    or its blend operations over 67 TFLOP/s f32, the larger) and the
    kernel's share of it.  Every batch
@@ -26,14 +27,20 @@ Phases (any failure exits non-zero; no phase is skipped):
    reads the device chunk arena's rows through the batch's row index);
    bar: byte-identical to the plain-upload entry, and its ms.
 4. Wire kernels against their plain versions on the card, on every
-   phase-3 planar batch: the v1 wire (run emit) and the v2 wire (run
-   emit + palette expand) with a palette learned from the batch's own
-   runs, a half palette and an all-PAL_PAD palette, each at a cap that
-   fits and at one that overflows.  Bar: bit-identical wires, and on
-   overflow a header total above the cap.  The fitting wires decode to
-   the planar batch's pixels.  Kernel ms beside plain ms at the bigcity
-   z15 and minicity @2x batches; wire bytes against raw planar bytes;
-   host decode ms per tile.
+   phase-3 planar batch and three synthetic ones (a uniform T=1 ts=1024
+   batch, a T=2 ts=256 per-pixel checkerboard, a T=3 ts=768 batch of
+   random runs): the v1 wire (one launch, the run emit's work) and the
+   v2 wire (one launch, the run emit's and the palette expand's work)
+   with a palette learned from the batch's own runs, a half palette and
+   an all-PAL_PAD palette, each at a cap that fits and at one that
+   overflows; on the bigcity z15 and minicity @2x batches also at the
+   edge caps (rtot = total_runs and total_runs - 1; a wcap right after a
+   literal's header word, right after its lo16 word, on a tile boundary,
+   and below total_runs).  Bar: bit-identical wires, and on overflow a
+   header total above the cap.  The fitting wires decode to the planar
+   batch's pixels.  On those two batches, each wire's wrapper ms
+   (`time_ms`) and device ms (`device_ms`) beside plain ms and its byte
+   bound; wire bytes against raw planar bytes; host decode ms per tile.
 4b. The labeled arena entry (render kernel, then the device label
    slab's blit) on the minicity z15 batch, its @2x batch and the bigcity
    z15 halves, with label layers from the port's fontTools-free labeler;
@@ -60,7 +67,9 @@ Phases (any failure exits non-zero; no phase is skipped):
    was loaded (the import guard refuses all four here and in the
    server).
 
-The second-to-last line is the kernels JSON object, the last line
+The second-to-last line is the kernels JSON object (each kernel's "ms"
+is its device ms on the bigcity z15 batch: the render kernel's, the v1
+wire's for rle_emit, the whole v2 wire's for rle_expand), the last line
 {"ok": true, "device": {...}}.  Without a CUDA device, or outside a
 checkout of the repository, it exits non-zero and prints no result.
 """
@@ -166,6 +175,36 @@ def time_ms(fn, reps: int = 5) -> float:
     return ev0.elapsed_time(ev1) / reps
 
 
+def device_ms(fn, reps: int = 20) -> float:
+    """Mean device ms of `reps` back-to-back launches of fn(), the host's
+    enqueue hidden: the card first sleeps (torch.cuda._sleep, its cycles
+    a ms measured here) for longer than the host took to queue the same
+    calls, then CUDA events time the queued calls as the card runs them."""
+    import torch
+
+    ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    ev0.record()
+    torch.cuda._sleep(10_000_000)
+    ev1.record()
+    torch.cuda.synchronize()
+    cycles_per_ms = 10_000_000 / ev0.elapsed_time(ev1)
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda._sleep(int(cycles_per_ms * (2 * host_ms + 1)))
+    ev0.record()
+    for _ in range(reps):
+        fn()
+    ev1.record()
+    torch.cuda.synchronize()
+    return ev0.elapsed_time(ev1) / reps
+
+
 # The card's published peaks (NVIDIA H100 SXM data sheet): HBM3 bytes/s
 # and float32 operations/s outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
@@ -244,6 +283,7 @@ def compare(name, prepared, canvas_u8, kinds_seen, rows):
         if n:
             kinds_seen.add(k)
     kernel_ms = time_ms(lambda: RC.render_batch_planar(b, canvas, ts))
+    kernel_dev_ms = device_ms(lambda: RC.render_batch_planar(b, canvas, ts))
     out_k = RC.render_batch_planar(b, canvas, ts)
     ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     ev0.record()
@@ -258,11 +298,13 @@ def compare(name, prepared, canvas_u8, kinds_seen, rows):
     C = b.chunk_i.shape[0]
     bound_ms, bound_by, nbytes, ops = render_bound(b, canvas, ts)
     log(f"  {name}: T={T} ts={ts} chunks={C} kinds={kinds} max|diff|={max_diff} "
-        f"membership_mismatch={member} kernel_ms={kernel_ms:.4f} twin_ms={twin_ms:.1f} "
+        f"membership_mismatch={member} kernel_ms={kernel_ms:.4f} "
+        f"kernel_device_ms={kernel_dev_ms:.4f} twin_ms={twin_ms:.1f} "
         f"bound_ms={bound_ms:.6f} ({bound_by}: {nbytes} B, {ops} f32 ops) "
-        f"share_of_bound={100 * bound_ms / kernel_ms:.3f}%")
+        f"device share of bound={100 * bound_ms / kernel_dev_ms:.3f}%")
     rows.append(dict(name=name, T=T, ts=ts, chunks=C, max_diff=max_diff, member=member,
-                     kernel_ms=kernel_ms, twin_ms=twin_ms, bound_ms=bound_ms,
+                     kernel_ms=kernel_ms, kernel_dev_ms=kernel_dev_ms, twin_ms=twin_ms,
+                     bound_ms=bound_ms,
                      bound_by=bound_by))
     if max_diff != 0 or member != 0:
         raise AssertionError(f"{name}: kernel disagrees with its twin "
@@ -416,13 +458,43 @@ def phase_kernel(device, styler, rows, kinds_seen, planars):
         raise AssertionError(f"real batches never reached chunk kinds {sorted(missing)}")
 
 
-# Batches whose wire kernels are timed (kernel ms beside plain ms).
+# Batches whose wires are timed (wrapper ms and device ms beside plain
+# ms and the byte bound) and cut at the edge caps.
 WIRE_TIMED = ("bigcity_z15[0]", "minicity_z15_2x[0]")
 
 
+def synthetic_planars(device):
+    """Planar batches the cities do not give: a uniform T=1 ts=1024 batch
+    (one run a 256-pixel block), a T=2 ts=256 per-pixel checkerboard
+    (every run 1 pixel long, every segment full of runs) and a T=3
+    ts=768 batch of random runs (geometric lengths of mean 6 over 400
+    colours from a seed, so a learned palette leaves literals)."""
+    import numpy as np
+    import torch
+
+    def planar(vals):
+        p = np.full((vals.shape[0], 4) + vals.shape[1:], 255, np.uint8)
+        for c in range(3):
+            p[:, c] = (vals >> (16 - 8 * c)) & 0xFF
+        return torch.from_numpy(p).to(device)
+
+    rng = np.random.default_rng(5)
+    yy, xx = np.indices((256, 256))
+    n = 3 * 768 * 768
+    colors = rng.integers(0, 1 << 24, 400)[rng.integers(0, 400, size=n)]
+    runs = np.repeat(colors, rng.geometric(1 / 6, size=n))[:n]
+    return [
+        ("uniform_T1_ts1024", planar(np.full((1, 1024, 1024), 0x4D7A2E, np.int64))),
+        ("checker_T2_ts256", planar(np.where((yy + xx) % 2 == 0, 0xF1EEE8, 0x3050A0)[None]
+                                    .repeat(2, 0))),
+        ("random_T3_ts768", planar(runs.reshape(3, 768, 768))),
+    ]
+
+
 def phase_wire(device, planars, wire_rows, decode):
-    """Emit and expand kernels vs their plain versions on every planar
-    batch of phase 3, at fitting and overflowing caps."""
+    """Both wires vs their plain versions on every planar batch, at
+    fitting and overflowing caps, and at the edge caps on the timed
+    batches."""
     import numpy as np
     import torch
 
@@ -482,7 +554,8 @@ def phase_wire(device, planars, wire_rows, decode):
             if pal == "learned":
                 host_v2 = v2.cpu().numpy()
                 _check_v2_decode(name, host_v2, rgb, ts)
-        if not words["pad"] == 3 * total_runs or not words["half"] > total_runs:
+        # A one-colour batch has no literal under a palette that holds it.
+        if words["pad"] != 3 * total_runs or not (words["half"] > total_runs or len(colors) == 1):
             raise AssertionError(f"{name}: palettes did not give both word forms: {words}")
         wsmall = max(total_runs // 2 & ~1, 2)
         tab = torch.from_numpy(palettes["learned"]).to(device)
@@ -494,26 +567,81 @@ def phase_wire(device, planars, wire_rows, decode):
         row = dict(name=name, T=T, ts=ts, runs=total_runs, words=words["learned"],
                    raw_bytes=raw, v1_bytes=4 * (2 + T + total_runs),
                    v2_bytes=4 * (3 + T + RL.PAL_CAP) + 2 * words["learned"])
+        edges = ""
         if name in WIRE_TIMED:
+            caps = _edge_caps(name, planar, torch.from_numpy(palettes["half"]).to(device), check)
+            edges = "; edge caps bit-identical: " + ", ".join(f"{k} {v}" for k, v in caps.items())
             row.update(_time_wire(planar, rtot, wcap, tab))
-            # Bytes each kernel must move: emit reads the RGB planes and
-            # writes the v1 wire; expand reads the runs and the palette
-            # and writes the v2 wire.  Both are bound by bytes.
-            row["emit_bound_ms"] = (3 * T * ts * ts + row["v1_bytes"]) / HBM_BYTES_PER_S * 1e3
-            row["expand_bound_ms"] = (4 * total_runs + 4 * RL.PAL_CAP + row["v2_bytes"]
-                                      ) / HBM_BYTES_PER_S * 1e3
+            # Bytes each wire must move: the RGB planes in (and the
+            # palette, v2), the live wire out.  Both are bound by bytes.
+            rgb_bytes = 3 * T * ts * ts
+            row["v1_bound_ms"] = (rgb_bytes + row["v1_bytes"]) / HBM_BYTES_PER_S * 1e3
+            row["v2_bound_ms"] = (rgb_bytes + 4 * RL.PAL_CAP + row["v2_bytes"]
+                                  ) / HBM_BYTES_PER_S * 1e3
             decode[name] = _time_decode(host_v1, host_v2, rgb, ts)
         wire_rows.append(row)
         timing = ""
-        if "emit_ms" in row:
-            timing = (f" emit_ms={row['emit_ms']:.4f} (plain {row['emit_plain_ms']:.2f}, "
-                      f"bound {row['emit_bound_ms']:.6f})"
-                      f" expand_ms={row['expand_ms']:.4f} (plain {row['expand_plain_ms']:.2f}, "
-                      f"bound {row['expand_bound_ms']:.6f})")
-        log(f"  {name}: runs={total_runs} words(learned/half/pad)={words['learned']}/"
-            f"{words['half']}/{words['pad']} bytes raw={raw} v1={row['v1_bytes']} "
-            f"v2={row['v2_bytes']}: bit-identical, overflow flagged{timing}")
+        if "v1_ms" in row:
+            timing = "".join(
+                f" {w}: wrapper_ms={row[w + '_ms']:.4f} device_ms={row[w + '_dev_ms']:.4f} "
+                f"(plain {row[w + '_plain_ms']:.2f}, bound {row[w + '_bound_ms']:.6f}, "
+                f"device share of bound {100 * row[w + '_bound_ms'] / row[w + '_dev_ms']:.2f}%)"
+                for w in ("v1", "v2"))
+        log(f"  {name}: T={T} ts={ts} segment={RLE.segment_px(planar)} px runs={total_runs} "
+            f"words(learned/half/pad)={words['learned']}/{words['half']}/{words['pad']} "
+            f"bytes raw={raw} v1={row['v1_bytes']} v2={row['v2_bytes']}: bit-identical, "
+            f"overflow flagged{edges}{timing}")
     return worst
+
+
+def _edge_caps(name, planar, table, check):
+    """Both wires at the caps where the cut falls on an edge: v1 at
+    total_runs (fits exactly) and total_runs - 1 (overflows by one); v2
+    under `table` right after a literal's header word, right after a
+    literal's lo16 word, on a tile boundary, and below total_runs (the
+    run cap bites).  -> {edge: wcap}."""
+    import torch
+
+    from osm_renderer_tpu_torch.ops import rle_cuda as RLE
+    from osm_renderer_tpu_torch.ops import rle_layout as RL
+
+    runs, _ = RLE.runs_reference(planar)
+    total_runs = runs.numel()
+    T = planar.shape[0]
+    for rtot, fits in ((total_runs, True), (total_runs - 1, False)):
+        _, over = check(name, "rle_emit", f"v1 rtot={rtot}", RLE.encode_batch_wire(planar, rtot),
+                        RLE.encode_batch_wire_reference(planar, rtot), rtot)
+        if over == fits:
+            raise AssertionError(f"{name}: v1 rtot={rtot} overflow flag {over}, want {not fits}")
+    # Word offsets of the runs under `table`, as the plain version has them.
+    vals = runs & 0xFFFFFF
+    tab = table.to(torch.int64)
+    pi = torch.searchsorted(tab, vals)
+    hit = (pi < RL.PAL_CAP) & (tab[pi.clamp(max=RL.PAL_CAP - 1)] == vals)
+    wc = torch.where(hit, 1, 3)
+    woff = torch.cumsum(wc, 0) - wc
+    literals = torch.nonzero(~hit).squeeze(1)
+    lit_off = woff[literals[literals.numel() // 2:]]
+    odd, even = lit_off[lit_off % 2 == 1], lit_off[lit_off % 2 == 0]
+    full = RLE.encode_wire_indexed_reference(planar, 3 * total_runs + 2 + total_runs % 2, table)
+    ends = torch.cumsum(full[3 : 3 + T].long(), 0)[:-1]
+    ends = ends[ends % 2 == 0]
+    if not odd.numel() or not even.numel() or not ends.numel():
+        raise AssertionError(f"{name}: no literal at an odd and an even word offset, or no "
+                             "tile boundary at an even word offset")
+    caps = {
+        "after a literal's header word": int(odd[0]) + 1,
+        "after a literal's lo16 word": int(even[0]) + 2,
+        "on a tile boundary": int(ends[ends.numel() // 2]),
+        "below total_runs": (total_runs - 1) & ~1,
+    }
+    for what, wcap in caps.items():
+        _, over = check(name, "rle_expand", f"v2 wcap={wcap} ({what})",
+                        RLE.encode_wire_indexed(planar, wcap, table),
+                        RLE.encode_wire_indexed_reference(planar, wcap, table), wcap)
+        if not over:
+            raise AssertionError(f"{name}: v2 wcap={wcap} ({what}) did not overflow")
+    return {"rtot": f"{total_runs} and {total_runs - 1}", **caps}
 
 
 def _check_v2_decode(name, wire, rgb, ts):
@@ -534,21 +662,22 @@ def _check_v2_decode(name, wire, rgb, ts):
 
 
 def _time_wire(planar, rtot, wcap, tab):
-    """Emit: the v1 wire, kernel vs plain.  Expand: from the same emitted
-    runs to the v2 wire, kernel vs plain."""
-    import torch
-
+    """The v1 and the whole v2 wire: wrapper ms (time_ms, the host's
+    enqueue included), device ms (device_ms, the enqueue hidden) and the
+    plain version's ms."""
     from osm_renderer_tpu_torch.ops import rle_cuda as RLE
 
-    T = planar.shape[0]
-    runs = torch.empty(wcap, dtype=torch.int32, device=planar.device)
-    nb, cum = RLE.emit_cuda(planar, runs, wcap)
-    runs_ref, nb_ref = RLE.runs_reference(planar)
+    def v1():
+        return RLE.encode_batch_wire(planar, rtot)
+
+    def v2():
+        return RLE.encode_wire_indexed(planar, wcap, tab)
+
     return dict(
-        emit_ms=time_ms(lambda: RLE.encode_batch_wire(planar, rtot)),
-        emit_plain_ms=time_ms(lambda: RLE.encode_batch_wire_reference(planar, rtot)),
-        expand_ms=time_ms(lambda: RLE.expand_cuda(runs, nb, cum[-1:], T, wcap, tab)),
-        expand_plain_ms=time_ms(lambda: RLE.expand_reference(runs_ref, nb_ref, T, wcap, tab)),
+        v1_ms=time_ms(v1), v1_dev_ms=device_ms(v1),
+        v1_plain_ms=time_ms(lambda: RLE.encode_batch_wire_reference(planar, rtot)),
+        v2_ms=time_ms(v2), v2_dev_ms=device_ms(v2),
+        v2_plain_ms=time_ms(lambda: RLE.encode_wire_indexed_reference(planar, wcap, tab)),
     )
 
 
@@ -918,11 +1047,11 @@ def main() -> int:
     planars: list = []
     phase_kernel(device, styler, rows, kinds_seen, planars)
 
-    log("phase 4: wire kernels vs their plain versions on every phase-3 batch "
-        "(bar: bit-identical wires; overflow flagged)")
+    log("phase 4: wire kernels vs their plain versions on every phase-3 batch and three "
+        "synthetic ones (bar: bit-identical wires; overflow flagged)")
     wire_rows: list = []
     decode: dict = {}
-    worst = phase_wire(device, planars, wire_rows, decode)
+    worst = phase_wire(device, planars + synthetic_planars(device), wire_rows, decode)
     for name, d in decode.items():
         log(f"  host decode {name}: native decoder {'built' if d['native'] else 'absent'}; "
             f"v2 {d['v2_ms']:.3f} ms/tile through the serving view, "
@@ -951,12 +1080,12 @@ def main() -> int:
     head = next(r for r in rows if r["name"] == "bigcity_z15[0]")
     wire_head = next(r for r in wire_rows if r["name"] == "bigcity_z15[0]")
     measured = {
-        "render_planar": (max(r["max_diff"] for r in rows), head["kernel_ms"],
+        "render_planar": (max(r["max_diff"] for r in rows), head["kernel_dev_ms"],
                           head["twin_ms"], head["bound_ms"], head["bound_by"]),
-        "rle_emit": (worst["rle_emit"], wire_head["emit_ms"], wire_head["emit_plain_ms"],
-                     wire_head["emit_bound_ms"], "bytes"),
-        "rle_expand": (worst["rle_expand"], wire_head["expand_ms"],
-                       wire_head["expand_plain_ms"], wire_head["expand_bound_ms"], "bytes"),
+        "rle_emit": (worst["rle_emit"], wire_head["v1_dev_ms"], wire_head["v1_plain_ms"],
+                     wire_head["v1_bound_ms"], "bytes"),
+        "rle_expand": (worst["rle_expand"], wire_head["v2_dev_ms"], wire_head["v2_plain_ms"],
+                       wire_head["v2_bound_ms"], "bytes"),
     }
     launches = {"render_planar": served["launches"]["render"],
                 "rle_emit": served["launches"]["emit"],

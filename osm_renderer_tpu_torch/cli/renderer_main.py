@@ -12,7 +12,7 @@ Same INI surface as `osm_renderer_tpu.cli.renderer_main`:
     font-mul = 1.5         ; optional
 
     [render]
-    backend = device       ; or cpu (the C++ oracle, no GPU)
+    backend = device       ; the default; or cpu (the C++ oracle, no GPU)
     device = cuda          ; CUDA device for backend = device (cuda, cuda:N)
     gpus = 1               ; one GPU only for now
     precision = fast       ; the only precision of the CUDA backend
@@ -21,6 +21,8 @@ Same INI surface as `osm_renderer_tpu.cli.renderer_main`:
     png-cache = 512
     warmup = yes           ; render a few tiles before accepting traffic
 
+An INI without a `backend` line serves from the card (`device`
+defaults to `cuda`); `backend = cpu` is the way to ask for the oracle.
 With backend = device, the server prints, when it shuts down, the
 launches of each kernel made while serving (render, run emit, palette
 expand) and the batches it served by path: arena or plain upload, and
@@ -37,6 +39,61 @@ import os
 import sys
 
 
+def _require(config: configparser.ConfigParser, section: str, name: str) -> str:
+    try:
+        return config[section][name]
+    except KeyError:
+        print(f"Property {name} is missing in section [{section}]", file=sys.stderr)
+        raise SystemExit(1)
+
+
+def service_from_config(config: configparser.ConfigParser, osm_ids=None):
+    """The tile service an INI asks for -> (service, backend).  Without a
+    `backend` line it serves from the card.  Prints the fault and raises
+    SystemExit(1) on a missing property or an unknown stylesheet type or
+    backend."""
+    geodata_file = _require(config, "geodata", "file")
+    stylesheet_file = _require(config, "style", "file")
+    stylesheet_type = _require(config, "style", "type")
+    if stylesheet_type not in ("josm", "mapsme"):
+        print(f"Unknown stylesheet type: {stylesheet_type}", file=sys.stderr)
+        raise SystemExit(1)
+    font_mul = None
+    if config.has_option("style", "font-mul"):
+        font_mul = float(config["style"]["font-mul"])
+
+    backend = config.get("render", "backend", fallback="device")
+    device = config.get("render", "device", fallback="cuda")
+    gpus = int(config.get("render", "gpus", fallback="1"))
+    precision = config.get("render", "precision", fallback="fast")
+    png_level = int(config.get("render", "png-level", fallback="1"))
+    labels = config.getboolean("render", "labels", fallback=True)
+    png_cache = int(config.get("render", "png-cache", fallback="512"))
+    if backend not in ("cpu", "device"):
+        print(f"Unknown render backend: {backend}", file=sys.stderr)
+        raise SystemExit(1)
+
+    from osm_renderer_tpu_torch.mapcss.parser import parse_file
+    from osm_renderer_tpu_torch.mapcss.styler import Styler
+    from osm_renderer_tpu_torch.server.http import TileService
+
+    base_path, file_name = os.path.split(stylesheet_file)
+    styler = Styler(parse_file(base_path, file_name), stylesheet_type, font_mul)
+    if backend == "device":
+        service = TileService(
+            geodata_file, styler, base_path, osm_ids=osm_ids, enable_labels=labels,
+            precision=precision, png_level=png_level, png_cache_tiles=png_cache,
+            device=device, gpus=gpus,
+        )
+    else:
+        # The C++ oracle on the CPU, one tile a request (needs no GPU).
+        service = TileService(
+            geodata_file, styler, base_path, backend="cpu", osm_ids=osm_ids,
+            enable_labels=labels, png_level=png_level, png_cache_tiles=png_cache,
+        )
+    return service, backend
+
+
 def main(argv=None) -> int:
     argv = argv if argv is not None else sys.argv[1:]
     if len(argv) < 1:
@@ -48,53 +105,17 @@ def main(argv=None) -> int:
         print(f"Failed to parse config from {argv[0]}", file=sys.stderr)
         return 1
 
-    def require(section: str, name: str) -> str:
-        try:
-            return config[section][name]
-        except KeyError:
-            print(f"Property {name} is missing in section [{section}]", file=sys.stderr)
-            raise SystemExit(1)
-
-    address = require("http", "address")
-    geodata_file = require("geodata", "file")
-    stylesheet_file = require("style", "file")
-    stylesheet_type = require("style", "type")
-    if stylesheet_type not in ("josm", "mapsme"):
-        print(f"Unknown stylesheet type: {stylesheet_type}", file=sys.stderr)
-        return 1
-    font_mul = None
-    if config.has_option("style", "font-mul"):
-        font_mul = float(config["style"]["font-mul"])
-
+    address = _require(config, "http", "address")
     osm_ids = {int(x) for x in argv[1:]} if len(argv) > 1 else None
+    try:
+        service, backend = service_from_config(config, osm_ids)
+    except SystemExit as e:
+        return int(e.code)
 
-    backend = config.get("render", "backend", fallback="cpu")
-    device = config.get("render", "device", fallback="cuda")
-    gpus = int(config.get("render", "gpus", fallback="1"))
-    precision = config.get("render", "precision", fallback="fast")
-    png_level = int(config.get("render", "png-level", fallback="1"))
-    labels = config.getboolean("render", "labels", fallback=True)
-    png_cache = int(config.get("render", "png-cache", fallback="512"))
-    if backend not in ("cpu", "device"):
-        print(f"Unknown render backend: {backend}", file=sys.stderr)
-        return 1
-
-    from osm_renderer_tpu_torch.mapcss.parser import parse_file
-    from osm_renderer_tpu_torch.mapcss.styler import Styler
     from osm_renderer_tpu_torch.ops import render_cuda, rle_cuda
-
-    base_path, file_name = os.path.split(stylesheet_file)
-    rules = parse_file(base_path, file_name)
-    styler = Styler(rules, stylesheet_type, font_mul)
+    from osm_renderer_tpu_torch.server.http import run_server
 
     if backend == "device":
-        from osm_renderer_tpu_torch.server.http import TileService, run_server
-
-        service = TileService(
-            geodata_file, styler, base_path, osm_ids=osm_ids, enable_labels=labels,
-            precision=precision, png_level=png_level, png_cache_tiles=png_cache,
-            device=device, gpus=gpus,
-        )
         if config.getboolean("render", "warmup", fallback=True):
             print("Warming up the device path...")
             print(f"Warmed {service.warmup()} tiles", flush=True)
@@ -104,14 +125,6 @@ def main(argv=None) -> int:
         for counts in (service.batch_renderer.batch_counts,
                        service.batch_renderer.readback_bytes):
             counts.update(dict.fromkeys(counts, 0))
-    else:
-        # The C++ oracle on the CPU, one tile a request (needs no GPU).
-        from osm_renderer_tpu_torch.server.http import TileService, run_server
-
-        service = TileService(
-            geodata_file, styler, base_path, backend="cpu", osm_ids=osm_ids,
-            enable_labels=labels, png_level=png_level, png_cache_tiles=png_cache,
-        )
     print(f"Serving tiles on http://{address} (backend={backend})", flush=True)
     asyncio.run(run_server(address, service))
     if backend == "device":

@@ -111,12 +111,10 @@ def render_library(ptxas_verbose: bool = False) -> ctypes.CDLL:
 def rle_library(ptxas_verbose: bool = False) -> ctypes.CDLL:
     lib = load_library("rle.cu", ptxas_verbose)
     P, I = ctypes.c_void_p, ctypes.c_int
-    lib.osmr_rle_count_runs.argtypes = [P, I, I, P, P]           # planar, T, ts, nb, stream
-    lib.osmr_rle_emit_runs.argtypes = [P, I, I, P, P, I, P]      # ..., off, out, rtot, stream
-    lib.osmr_rle_word_counts.argtypes = [P, P, I, P, P, P]       # runs, total, n, table, wc, stream
-    lib.osmr_rle_expand_words.argtypes = [P, P, I, P, P, P, I, P]  # ..., woff, words, wcap, stream
-    for fn in (lib.osmr_rle_count_runs, lib.osmr_rle_emit_runs, lib.osmr_rle_word_counts,
-               lib.osmr_rle_expand_words):
+    # planar, T, ts, seg_px, [table,] wire and scratch, cap, stream
+    lib.osmr_rle_wire_v1.argtypes = [P, I, I, I, P, I, P]
+    lib.osmr_rle_wire_v2.argtypes = [P, I, I, I, P, P, I, P]
+    for fn in (lib.osmr_rle_wire_v1, lib.osmr_rle_wire_v2):
         fn.restype = ctypes.c_int
     return lib
 

@@ -12,11 +12,14 @@ in `ops/rle_layout.py`.
 * `encode_wire_indexed(planar, wcap, table)` -> the v2 wire
   [T, total_words, total_runs, n_words[T], table[PAL_CAP], packed32[wcap/2]].
 
-Both check their inputs, launch the kernels for CUDA tensors (raising if
-a build or launch fails) and run the plain versions for CPU tensors.
-They never fall back from a CUDA tensor.  The plain versions
-(`*_reference`) work on any device; the tests hold them bit for bit to
-the XLA encoders, and the chip smoke run holds the kernels to them.
+Both check their inputs and run the plain versions for CPU tensors.  For
+CUDA tensors each allocates the wire with a small scratch behind it and
+makes one call into the library, which clears both with one memset and
+launches one kernel; a failed build or launch raises.  They never fall
+back from a CUDA tensor.  The plain versions (`*_reference`) work on
+any device; the tests hold them bit for bit to the XLA encoders and to
+a per-run loop encoder, and the chip smoke run holds the kernels to
+them.
 
 Overflow: when a batch has more runs than `rtot` (v1) or more words than
 `wcap` (v2), the header's total exceeds the cap and the content is cut at
@@ -26,15 +29,16 @@ the cap.  The caller then reads the raw planar batch.
 from __future__ import annotations
 
 import threading
+from typing import Optional
 
 import torch
 
 from osm_renderer_tpu_torch.ops.render_cuda import BatchLayoutError
 from osm_renderer_tpu_torch.ops.rle_layout import BLOCK, PAL_CAP
 
-# Launches made by the wrappers on CUDA tensors: one emit per wire (its
-# run-count pass included), one expand per v2 wire (its word-count pass
-# included).
+# Launches made by the wrappers on CUDA tensors, counted by the TPU
+# kernel whose work they do: a v1 wire counts one emit; a v2 wire's one
+# kernel counts one emit and one expand.
 EMIT_KERNEL_LAUNCHES = 0
 EXPAND_KERNEL_LAUNCHES = 0
 _launch_lock = threading.Lock()
@@ -77,20 +81,13 @@ def _route(planar: torch.Tensor) -> bool:
 
 def encode_batch_wire(planar: torch.Tensor, rtot: int) -> torch.Tensor:
     """(T, 4, ts, ts) u8 -> v1 wire, (2 + T + rtot,) i32 on the planar's
-    device.  CUDA: the emit kernel, not synchronised."""
+    device.  CUDA: one call, one kernel launch; not synchronised."""
     global EMIT_KERNEL_LAUNCHES
     _check_planar(planar)
     _check_cap("rtot", rtot)
     if not _route(planar):
         return encode_batch_wire_reference(planar, rtot)
-    T = planar.shape[0]
-    wire = torch.empty(2 + T + rtot, dtype=torch.int32, device=planar.device)
-    packed = wire[2 + T:]
-    packed.zero_()
-    nb, cum = emit_cuda(planar, packed, rtot)
-    wire[0:1].fill_(T)
-    wire[1:2].copy_(cum[-1:])
-    wire[2:2 + T] = nb.view(T, -1).sum(1, dtype=torch.int32)
+    wire = _launch_wire("osmr_rle_wire_v1", planar, 2 + planar.shape[0] + rtot, rtot)
     with _launch_lock:
         EMIT_KERNEL_LAUNCHES += 1
     return wire
@@ -98,87 +95,59 @@ def encode_batch_wire(planar: torch.Tensor, rtot: int) -> torch.Tensor:
 
 def encode_wire_indexed(planar: torch.Tensor, wcap: int, table: torch.Tensor) -> torch.Tensor:
     """(T, 4, ts, ts) u8 + sorted (PAL_CAP,) i32 palette -> v2 wire,
-    (3 + T + PAL_CAP + wcap / 2,) i32 on the planar's device.  CUDA: the
-    emit and expand kernels, not synchronised."""
+    (3 + T + PAL_CAP + wcap / 2,) i32 on the planar's device.  CUDA: one
+    call, one kernel launch that does the work of the emit and the
+    expand (counted as one of each); not synchronised."""
     global EMIT_KERNEL_LAUNCHES, EXPAND_KERNEL_LAUNCHES
     _check_planar(planar)
     _check_cap("wcap", wcap, even=True)
     _check_table(table, planar)
     if not _route(planar):
         return encode_wire_indexed_reference(planar, wcap, table)
-    runs = torch.empty(wcap, dtype=torch.int32, device=planar.device)
-    nb, cum = emit_cuda(planar, runs, wcap)
+    n = 3 + planar.shape[0] + PAL_CAP + wcap // 2
+    wire = _launch_wire("osmr_rle_wire_v2", planar, n, wcap, table)
     with _launch_lock:
         EMIT_KERNEL_LAUNCHES += 1
-    wire = expand_cuda(runs, nb, cum[-1:], planar.shape[0], wcap, table)
-    with _launch_lock:
         EXPAND_KERNEL_LAUNCHES += 1
     return wire
 
 
-def expand_cuda(runs: torch.Tensor, nb: torch.Tensor, total_runs: torch.Tensor, T: int,
-                wcap: int, table: torch.Tensor) -> torch.Tensor:
-    """The expand half of `encode_wire_indexed` on the card: the emitted
-    runs (wcap i32 slots), the per-block run counts and the run total (a
-    (1,) device tensor) -> the v2 wire.  Counts no launch."""
+def segment_px(planar: torch.Tensor) -> int:
+    """Pixels a CTA of the wire kernels covers: 4096 (16 a thread, one
+    16-byte load a plane) where ts * ts is a multiple of 4096 and the
+    batch is 16-byte aligned, else one 256-pixel block."""
+    n_px = planar.shape[2] * planar.shape[3]
+    return 4096 if n_px % 4096 == 0 and planar.data_ptr() % 16 == 0 else BLOCK
+
+
+def _launch_wire(entry: str, planar: torch.Tensor, n_wire: int, cap: int,
+                 table: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One call into the wire library, which clears the wire and the
+    kernel's scratch with one memset on the current stream and launches
+    its kernel once.  The scratch (a ticket counter and one status word
+    a segment) follows the wire in one allocation; the wire returned is
+    a view of its head."""
     from osm_renderer_tpu_torch.ops.build import rle_library
 
     lib = rle_library()
-    dev = runs.device
-    wc = torch.empty(wcap, dtype=torch.int32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        _ok(lib.osmr_rle_word_counts(runs.data_ptr(), total_runs.data_ptr(), wcap,
-                                     table.data_ptr(), wc.data_ptr(), stream), "word count")
-        cum_w = torch.cumsum(wc, 0, dtype=torch.int32)
-        woff = cum_w - wc
-        head = 3 + T + PAL_CAP
-        wire = torch.empty(head + wcap // 2, dtype=torch.int32, device=dev)
-        words = wire[head:]
-        words.zero_()
-        _ok(lib.osmr_rle_expand_words(runs.data_ptr(), total_runs.data_ptr(), wcap,
-                                      table.data_ptr(), woff.data_ptr(), words.data_ptr(),
-                                      wcap, stream), "expand")
-    wire[0:1].fill_(T)
-    wire[1:2] = torch.maximum(cum_w[-1:], total_runs)
-    wire[2:3].copy_(total_runs)
-    wire[3:3 + T] = _words_per_tile(nb.view(T, -1).sum(1, dtype=torch.int32), cum_w, wcap)
-    wire[3 + T:head].copy_(table)
-    return wire
-
-
-def _ok(rc: int, what: str) -> None:
-    if rc != 0:
-        raise RuntimeError(f"RLE {what} kernel launch failed with cudaError_t {rc}")
-
-
-def emit_cuda(planar: torch.Tensor, out: torch.Tensor, cap: int):
-    """Run-count kernel, exclusive cumsum, emit kernel into `out` (cap
-    i32 slots).  -> (nb per 256-px block, inclusive cumsum of nb)."""
-    from osm_renderer_tpu_torch.ops.build import rle_library
-
-    lib = rle_library()
-    dev = planar.device
     T, ts = planar.shape[0], planar.shape[2]
-    nb = torch.empty(T * ts * ts // BLOCK, dtype=torch.int32, device=dev)
+    if 3 * T * ts * ts >= 2 ** 31:
+        raise BatchLayoutError(f"batch of {T} tiles of {ts} px: the wire kernels' run and "
+                               "word counts need 3 * T * ts * ts < 2**31")
+    dev = planar.device
+    seg = segment_px(planar)
+    lead = n_wire + n_wire % 2
+    buf = torch.empty(lead + 2 * (1 + T * ts * ts // seg), dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
+    args = [planar.data_ptr(), T, ts, seg]
+    if table is not None:
+        args.append(table.data_ptr())
+    args += [buf.data_ptr(), cap, stream]
     with torch.cuda.device(dev):
-        _ok(lib.osmr_rle_count_runs(planar.data_ptr(), T, ts, nb.data_ptr(), stream), "run count")
-        cum = torch.cumsum(nb, 0, dtype=torch.int32)
-        off = cum - nb
-        _ok(lib.osmr_rle_emit_runs(planar.data_ptr(), T, ts, off.data_ptr(), out.data_ptr(),
-                                   cap, stream), "emit")
-    return nb, cum
-
-
-def _words_per_tile(n_runs_tile: torch.Tensor, cum_w: torch.Tensor, n_live: int) -> torch.Tensor:
-    """Per-tile word counts from the inclusive word cumsum at each tile's
-    last run (tile starts are forced run boundaries); on overflow the
-    run index clamps to the last slot, as the XLA encoder does."""
-    run_ends = (torch.cumsum(n_runs_tile, 0) - 1).clamp(0, n_live - 1)
-    words_end = cum_w[run_ends.long()]
-    zero = torch.zeros(1, dtype=words_end.dtype, device=words_end.device)
-    return torch.diff(words_end, prepend=zero).to(torch.int32)
+        rc = getattr(lib, entry)(*args)
+    if rc != 0:
+        raise RuntimeError(f"RLE wire kernel ({entry}) failed with cudaError_t {rc}")
+    return buf[:n_wire]
 
 
 # ---------------------------------------------------------------------------
@@ -225,6 +194,16 @@ def encode_wire_indexed_reference(
     """Plain version of `encode_wire_indexed`."""
     packed, nb = runs_reference(planar)
     return expand_reference(packed, nb, planar.shape[0], wcap, table)
+
+
+def _words_per_tile(n_runs_tile: torch.Tensor, cum_w: torch.Tensor, n_live: int) -> torch.Tensor:
+    """Per-tile word counts from the inclusive word cumsum at each tile's
+    last run (tile starts are forced run boundaries); on overflow the
+    run index clamps to the last slot, as the XLA encoder does."""
+    run_ends = (torch.cumsum(n_runs_tile, 0) - 1).clamp(0, n_live - 1)
+    words_end = cum_w[run_ends.long()]
+    zero = torch.zeros(1, dtype=words_end.dtype, device=words_end.device)
+    return torch.diff(words_end, prepend=zero).to(torch.int32)
 
 
 def expand_reference(packed: torch.Tensor, nb: torch.Tensor, T: int, wcap: int,

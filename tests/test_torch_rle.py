@@ -5,7 +5,10 @@ Bars: the plain v1 and v2 encoders are bit-identical to
 `encode_batch_wire` and `encode_wire_indexed` whenever the batch fits
 its cap; on overflow the header [T, total_runs] and the overflow flag
 (total > cap) agree (past the cap both sides cut the content, and the
-XLA encoder's last slot then carries a length it never finished).  The
+XLA encoder's last slot then carries a length it never finished).  On
+overflow too, at the caps where the cut falls on an edge, the plain
+wires equal a per-run loop encoder written from the format's
+definition, content and zero tail included.  The
 copied constants, `build_palette` and the numpy decoders equal the
 originals, and the vectorised v2 decode equals
 `decode_wire_indexed_numpy`.  The CUDA kernels are held to the plain
@@ -37,7 +40,30 @@ def _rgb_cases():
             rgb[0, : ts // 8, : ts // 4, 1] = 255
             cases[f"random_T{T}_ts{ts}"] = _planar_from_rgb(rgb)
     cases["uniform_T2_ts256"] = _planar_from_rgb(np.full((2, 256, 256, 3), 77, np.uint8))
+    cases.update(_synthetic_cases(rng))
     return cases
+
+
+def _synthetic_cases(rng):
+    """The shapes the card's wire kernels are driven at, cut to keep the
+    XLA encoders' word cap at or under 65536: one colour over a 1024 px
+    tile (one run a 256-pixel block), a per-pixel checkerboard (every
+    run one pixel long) and random runs of geometric lengths (mean 6)
+    over 400 colours (a learned palette leaves literals)."""
+    def planar(vals):
+        rgb = np.stack([(vals >> 16) & 0xFF, (vals >> 8) & 0xFF, vals & 0xFF], -1)
+        return _planar_from_rgb(rgb.astype(np.uint8))
+
+    yy, xx = np.indices((64, 64))
+    n = 3 * 128 * 128
+    colors = rng.integers(0, 1 << 24, 400)[rng.integers(0, 400, size=n)]
+    runs = np.repeat(colors, rng.geometric(1 / 6, size=n))[:n]
+    return {
+        "uniform_T1_ts1024": planar(np.full((1, 1024, 1024), 0x4D7A2E, np.int64)),
+        "checker_T2_ts64": planar(np.where((yy + xx) % 2 == 0, 0xF1EEE8, 0x3050A0)[None]
+                                  .repeat(2, 0)),
+        "runs_T3_ts128": planar(runs.reshape(3, 128, 128)),
+    }
 
 
 CASES = _rgb_cases()
@@ -144,6 +170,116 @@ def test_plain_v2_overflow_matches_xla(name, rendered):
     assert int(got[2]) == int(want[2])
     assert int(got[1]) > wcap and int(want[1]) > wcap
     assert RL.decode_wire_indexed_numpy(got, planar.shape[2]) is None
+
+
+def _loop_runs(planar):
+    """Every run of the batch as (tile, colour, length), by a loop over the
+    format's definition: pixels tile-major then row-major as 0x00RRGGBB;
+    a run ends at a colour change and at every BLOCK-th pixel."""
+    runs = []
+    for t in range(planar.shape[0]):
+        p = planar[t, :3].astype(np.int64)
+        v = ((p[0] << 16) | (p[1] << 8) | p[2]).reshape(-1)
+        for b0 in range(0, v.size, RL.BLOCK):
+            block = v[b0 : b0 + RL.BLOCK]
+            cuts = [0, *(np.flatnonzero(block[1:] != block[:-1]) + 1).tolist(), RL.BLOCK]
+            runs += [(t, int(block[a]), b - a) for a, b in zip(cuts[:-1], cuts[1:])]
+    return runs
+
+
+def _as_i32(words):
+    return np.array(words, np.int64).astype(np.uint32).view(np.int32)
+
+
+def _loop_v1(runs, T, rtot):
+    """[T, total_runs, n_runs[T], packed[rtot]]: runs past rtot are cut;
+    the header counts them all."""
+    n_runs = [0] * T
+    packed = [0] * rtot
+    for i, (t, color, length) in enumerate(runs):
+        n_runs[t] += 1
+        if i < rtot:
+            packed[i] = ((length - 1) << 24) | color
+    return _as_i32([T, len(runs), *n_runs, *packed])
+
+
+def _loop_v2(runs, T, wcap, table):
+    """[T, total_words, total_runs, n_words[T], table, packed32[wcap/2]]:
+    a palette hit is one word (index << 8 | len - 1), a miss three
+    (0xFF00 | len - 1, colour & 0xFFFF, colour >> 16).  Runs at index
+    >= wcap count no words; words at offset >= wcap are dropped;
+    total_words = max(words counted, total_runs)."""
+    first = {}
+    for i, c in enumerate(table.tolist()):
+        first.setdefault(c, i)
+    words = [0] * wcap
+    n_words = [0] * T
+    o = 0
+    for i, (t, color, length) in enumerate(runs):
+        if i >= wcap:
+            break
+        if color in first:
+            seq = [(first[color] << 8) | (length - 1)]
+        else:
+            seq = [0xFF00 | (length - 1), color & 0xFFFF, color >> 16]
+        for w in seq:
+            if o < wcap:
+                words[o] = w
+            o += 1
+        n_words[t] += len(seq)
+    packed32 = [lo | (hi << 16) for lo, hi in zip(words[0::2], words[1::2])]
+    return _as_i32([T, max(o, len(runs)), len(runs), *n_words, *table.tolist(), *packed32])
+
+
+def _edge_caps(runs, T, table):
+    """The caps where the cut falls on an edge (all even): right after a
+    literal's header word and right after its lo16 word, on a boundary
+    between tiles, below total_runs, and at total_words (fits
+    exactly)."""
+    first = set(table.tolist())
+    offs, o = [], 0
+    for _, color, _ in runs:
+        offs.append((o, color in first))
+        o += 1 if color in first else 3
+    lit = [w for w, hit in offs if not hit]
+    ends = np.cumsum([sum(1 if c in first else 3 for t2, c, _ in runs if t2 == t)
+                      for t in range(T)])[:-1]
+    caps = {
+        "after a literal's header word": next((w + 1 for w in lit if w % 2), None),
+        "after a literal's lo16 word": next((w + 2 for w in lit if w % 2 == 0), None),
+        "on a tile boundary": next((int(e) for e in ends if e % 2 == 0), None),
+        "below total_runs": (len(runs) - 1) & ~1,
+        "fits exactly": o + o % 2,
+    }
+    return {k: v for k, v in caps.items() if v}
+
+
+@pytest.mark.parametrize("name", list(_synthetic_cases(np.random.default_rng(21)))
+                         + ["rendered_1x", "rendered_2x"])
+def test_plain_wires_match_loop_encoder(name, rendered):
+    """The plain v1 and v2 wires, header, content and zero tail, equal a
+    per-run loop encoder written from the format's definition, at the
+    edge caps, overflowing ones included (the card's kernels are held
+    to the plain versions on the whole wire)."""
+    planar = _planar(name, rendered)
+    T = planar.shape[0]
+    runs = _loop_runs(planar)
+    total = len(runs)
+    pt = torch.from_numpy(planar)
+    for rtot in (total, total - 1, max(total // 2, 1), RL.rcap_bucket(total)):
+        np.testing.assert_array_equal(RLE.encode_batch_wire(pt, rtot).numpy(),
+                                      _loop_v1(runs, T, rtot), err_msg=f"v1 rtot={rtot}")
+    pal = _palettes(planar)
+    # A palette with literals at both word parities: the half palette,
+    # or all PAL_PAD where the half palette holds every colour.
+    table = pal["half"] if len({c for _, c, _ in runs}) > 1 else pal["literal"]
+    caps = _edge_caps(runs, T, table)
+    assert {"after a literal's header word", "after a literal's lo16 word"} <= set(caps)
+    for what, wcap in caps.items():
+        got = RLE.encode_wire_indexed(pt, wcap, torch.from_numpy(table)).numpy()
+        np.testing.assert_array_equal(got, _loop_v2(runs, T, wcap, table),
+                                      err_msg=f"v2 wcap={wcap} ({what})")
+        assert (int(got[1]) > wcap) == (wcap < caps["fits exactly"])
 
 
 def test_layout_copies_match_originals():

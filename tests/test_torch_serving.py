@@ -456,3 +456,28 @@ def test_wire_wrappers_refuse_cuda_on_cpu_host(mini_bin, styler, monkeypatch):
     with pytest.raises(RuntimeError):
         RLE.encode_wire_indexed(planar, 1024, cpu_table)
     assert (RLE.EMIT_KERNEL_LAUNCHES, RLE.EXPAND_KERNEL_LAUNCHES) == (emits, expands)
+
+
+def test_cli_serves_from_the_device_by_default(mini_bin, tmp_path):
+    """An INI without a `backend` line builds the device-path service
+    (here on the kernels' plain versions, `device = cpu`), not the C++
+    oracle; `backend = cpu` still asks for the oracle."""
+    import configparser
+
+    from osm_renderer_tpu_torch.cli.renderer_main import service_from_config
+
+    ini = tmp_path / "server.conf"
+    ini.write_text(
+        f"[http]\naddress = 127.0.0.1:0\n[geodata]\nfile = {mini_bin}\n"
+        f"[style]\nfile = {os.path.join(STYLESHEET_DIR, 'default.mapcss')}\ntype = josm\n"
+        "[render]\ndevice = cpu\nlabels = no\n"
+    )
+    config = configparser.ConfigParser()
+    assert config.read(ini)
+    service, backend = service_from_config(config)
+    assert backend == service.backend == "device"
+    assert service.batch_renderer is not None
+    config["render"]["backend"] = "cpu"
+    service, backend = service_from_config(config)
+    assert backend == service.backend == "cpu"
+    assert service.batch_renderer is None
