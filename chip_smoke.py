@@ -51,6 +51,14 @@ Phases (any failure exits non-zero; no phase is skipped):
    alpha = 1 label cores and every pixel outside a layer's bbox
    byte-identical to it.  Labeled-entry ms beside unlabeled-entry ms
    and the blit's own ms, slab rows and bytes.
+4c. The dense renderer (ops/render_dense.py, `precision = exact` and
+   its fast twin): (a) CUDA byte-identical to the same function on the
+   CPU, both precisions, on 4 minicity z15 tiles, 2 @2x tiles, the
+   oversize-coordinate scene and the icon-fill scene; (b) CUDA exact on
+   every minicity z15 tile within 1/255 of CpuDrawer, < 1 % of values
+   off; (c) the 30-tile batch's ms (CUDA events) by phase (alphas,
+   blends), its device operations (torch.profiler) and peak memory, and
+   the CPU ms of the 4-tile batch.
 5. The served path: `python -m osm_renderer_tpu_torch.cli.renderer_main`
    with backend = device, device = cuda, labels = yes on the minicity,
    under the import guard of phase 7; >= 32 distinct
@@ -60,6 +68,9 @@ Phases (any failure exits non-zero; no phase is skipped):
    host composite; while serving, the server launched the render, emit
    and expand kernels, served at least one arena batch and one v2 wire
    batch, and labeled at least one tile on the device.
+5b. The same server with precision = exact (labels = yes): >= 16
+   distinct tiles (z13-z17, @1x and @2x), the same bars, only dense
+   batches and no kernel launch while serving.
 6. Warm served path in this process (PNG cache off): per-tile spans of
    warm minicity z15 and bigcity z15 batches with labels off, and of
    minicity z15 with labels on.
@@ -344,23 +355,15 @@ def split_prepare(renderer, tiles_entities, scale, label_layers=None):
         label_layers[sl] if label_layers is not None else None)]
 
 
-def scene_batch(device, icon: bool):
-    """A synthetic one-tile scene for the chunk kinds the cities lack:
-    an oversize-coordinate fill and round-capped dashed stroke (host
-    layers, KIND_LAYER) between two plain fills, or (icon=True) two
-    tiled icon fills (KIND_FILL_IMAGE) around a stroke.  -> (plain
-    PreparedBatch, arena render callable, canvas u8)."""
+def scene_prims(icon: bool):
+    """The synthetic one-tile scene's primitives -> (prims, the icon
+    cache of its fill pattern, or None)."""
     import numpy as np
-    import torch
     from PIL import Image
 
     from osm_renderer_tpu_torch.draw import primitives as P
     from osm_renderer_tpu_torch.draw.labels.icons import IconCache
     from osm_renderer_tpu_torch.ops.coverage_np import LINE_CAP_BUTT, LINE_CAP_ROUND
-    from osm_renderer_tpu_torch.ops import chunk_layout as CL
-    from osm_renderer_tpu_torch.ops import render_cuda as RC
-    from osm_renderer_tpu_torch.parallel.arena import ChunkArena
-    from osm_renderer_tpu_torch.parallel.renderer import PreparedBatch
 
     box = np.array([[30, 30, 90, 30], [90, 30, 90, 80], [90, 80, 30, 80], [30, 80, 30, 30]],
                    np.int64)
@@ -370,25 +373,41 @@ def scene_batch(device, icon: bool):
         px[..., 3] = rng.integers(60, 256, size=(10, 12), dtype=np.uint8)
         os.makedirs(OUT_DIR, exist_ok=True)
         Image.fromarray(px, "RGBA").save(os.path.join(OUT_DIR, "pattern.png"))
-        patterns = P.PatternTable(IconCache(OUT_DIR), 256)
         tri = np.array([[120, 20, 240, 200], [240, 200, 20, 230], [20, 230, 120, 20]], np.int64)
-        prims = [
+        return [
             P.FillPrim(kind="fill", color=None, opacity=1.0, edges=tri, fill_image="pattern.png"),
             P.make_stroke_prim(np.array([[0, 100, 255, 140]], np.int64), 3.0, (255, 255, 255),
                                1.0, None, LINE_CAP_BUTT, True),
             P.FillPrim(kind="fill", color=None, opacity=1.0, edges=box, fill_image="pattern.png"),
-        ]
-    else:
-        patterns = P.PatternTable(None, 256)
-        far = 5 * P.FAST_COORD_BOUND
-        tri = np.array([[-far, -100, 200, 90], [200, 90, 120, far], [120, far, -far, -100]],
-                       np.int64)
-        prims = [
-            P.FillPrim(kind="fill", color=(70, 130, 70), opacity=0.9, edges=tri),
-            P.make_stroke_prim(np.array([[-far, 60, far, 180]], np.int64), 5.0, (250, 250, 240),
-                               1.0, [8.0, 4.0], LINE_CAP_ROUND, True),
-            P.FillPrim(kind="fill", color=(180, 40, 40), opacity=1.0, edges=box),
-        ]
+        ], IconCache(OUT_DIR)
+    far = 5 * P.FAST_COORD_BOUND
+    tri = np.array([[-far, -100, 200, 90], [200, 90, 120, far], [120, far, -far, -100]],
+                   np.int64)
+    return [
+        P.FillPrim(kind="fill", color=(70, 130, 70), opacity=0.9, edges=tri),
+        P.make_stroke_prim(np.array([[-far, 60, far, 180]], np.int64), 5.0, (250, 250, 240),
+                           1.0, [8.0, 4.0], LINE_CAP_ROUND, True),
+        P.FillPrim(kind="fill", color=(180, 40, 40), opacity=1.0, edges=box),
+    ], None
+
+
+def scene_batch(device, icon: bool):
+    """A synthetic one-tile scene for the chunk kinds the cities lack:
+    an oversize-coordinate fill and round-capped dashed stroke (host
+    layers, KIND_LAYER) between two plain fills, or (icon=True) two
+    tiled icon fills (KIND_FILL_IMAGE) around a stroke.  -> (plain
+    PreparedBatch, arena render callable, canvas u8)."""
+    import numpy as np
+    import torch
+
+    from osm_renderer_tpu_torch.draw import primitives as P
+    from osm_renderer_tpu_torch.ops import chunk_layout as CL
+    from osm_renderer_tpu_torch.ops import render_cuda as RC
+    from osm_renderer_tpu_torch.parallel.arena import ChunkArena
+    from osm_renderer_tpu_torch.parallel.renderer import PreparedBatch
+
+    prims, icon_cache = scene_prims(icon)
+    patterns = P.PatternTable(icon_cache, 256)
     profiles = P.ProfileTable()
     stream = P.stream_tile_packed(prims, profiles, CL.CH, patterns)
     tc = CL.build_tile_chunks(stream, 256, profiles.chain_free_mask())
@@ -809,12 +828,163 @@ def phase_labeled(device, styler):
                     f"of cap {slab.cap} ({slab.plane.numel() * slab.plane.element_size()} bytes)")
 
 
+def _dense_scene(device, icon: bool, precision: str):
+    """A synthetic scene as a dense batch on `device` -> (TileBatch, canvas,
+    ts, chunk, chain, plan)."""
+    import numpy as np
+    import torch
+
+    from osm_renderer_tpu_torch.draw import primitives as P
+    from osm_renderer_tpu_torch.ops import render_dense as RD
+
+    prims, icon_cache = scene_prims(icon)
+    dtype = np.float64 if precision == "exact" else np.float32
+    profiles, patterns = P.ProfileTable(), P.PatternTable(icon_cache, 256)
+    stream = P.stream_tile(prims, profiles, 64, patterns)
+    arrays = P.build_batch([stream], profiles, 64, dtype=dtype, patterns=patterns, ts=256)
+    kinds = set(arrays.chunk_kind.ravel().tolist())
+    if (RD.KIND_FILL_IMAGE not in kinds) if icon else (np.abs(arrays.geom).max() < 1 << 14):
+        raise AssertionError(f"dense scene (icon={icon}) lacks what it is for: kinds "
+                             f"{sorted(kinds)}, max |coord| {np.abs(arrays.geom).max()}")
+    canvas = torch.from_numpy(np.array([241, 238, 232], dtype) / 255.0).to(device)
+    plan = RD.plan_batch(arrays, 256, 64, precision, RD.PIXEL_BUDGET["cuda"])
+    return (RD.TileBatch.from_numpy(arrays, device), canvas, 256, 64,
+            profiles.has_round_caps(), plan)
+
+
+def _event_ms(fn, reps: int = 3) -> float:
+    """Mean ms of `reps` calls after one warm call, CUDA events around
+    the calls."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    ev0.record()
+    for _ in range(reps):
+        fn()
+    ev1.record()
+    torch.cuda.synchronize()
+    return ev0.elapsed_time(ev1) / reps
+
+
+def _device_launches(fn) -> int:
+    """Device operations (kernels, copies, memsets) one call of fn() ran,
+    counted by torch.profiler; -1 when the profiler saw none."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    n = sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
+    return n if n else -1
+
+
+def phase_dense(device, styler, smi, out):
+    """The dense renderer (ops/render_dense.py) on the card.  (a) CUDA
+    against the same function on the CPU, byte-identical, in both
+    precisions: 4 minicity z15 tiles, 2 of them at @2x, the
+    oversize-coordinate scene and the icon-fill scene.  (b) CUDA exact on
+    every minicity z15 tile against CpuDrawer: max |diff| <= 1 with < 1 %
+    of pixels off.  (c) The 30-tile batch's ms (CUDA events) split into
+    phase 1 (alphas) and phase 2 (blends), its device operations from
+    torch.profiler and its peak memory, in both precisions; the CPU ms of
+    the 4-tile batch."""
+    import numpy as np
+    import torch
+
+    from osm_renderer_tpu_torch.draw.drawer import CpuDrawer
+    from osm_renderer_tpu_torch.geodata.reader import GeodataReader
+    from osm_renderer_tpu_torch.ops import render_dense as RD
+    from osm_renderer_tpu_torch.parallel.renderer import BatchRenderer
+
+    reader = GeodataReader.load(MINI_BIN)
+    z15 = [(reader.get_entities_in_tile_with_neighbors(t), t) for t in z_tiles(reader, 15)]
+    renderers = {p: BatchRenderer(styler, backend="dense", precision=p, device=str(device))
+                 for p in ("exact", "fast")}
+
+    def prepared(precision, tiles_entities, scale):
+        p = renderers[precision].prepare(tiles_entities, scale)
+        return p.batch, p.canvas_rgb, p.ts, p.chunk, p.chain, p.plan
+
+    for precision in ("exact", "fast"):
+        for name, args in (
+                ("minicity_z15_x4", prepared(precision, z15[:4], 1)),
+                ("minicity_z15_2x_x2", prepared(precision, z15[:2], 2)),
+                ("oversize_scene", _dense_scene(device, False, precision)),
+                ("icon_fill_scene", _dense_scene(device, True, precision))):
+            batch, canvas, ts, chunk, chain, plan = args
+            got = RD.render_batch(batch, canvas, ts, chunk, precision, chain, plan).cpu()
+            host = RD.TileBatch(*(t.cpu() for t in batch))
+            t0 = time.perf_counter()
+            want = RD.render_batch(host, canvas.cpu(), ts, chunk, precision, chain)
+            cpu_ms = (time.perf_counter() - t0) * 1e3
+            if not torch.equal(got, want):
+                n = int((got != want).any(-1).sum().item())
+                raise AssertionError(f"dense {precision} {name}: CUDA differs from the CPU in "
+                                     f"{n} pixels")
+            painted = float((got != got[0, 0, 0]).any(-1).float().mean())
+            log(f"  (a) {precision} {name}: T={got.shape[0]} ts={ts} chunk={chunk} "
+                f"chain={chain}: CUDA byte-identical to the CPU; painted {painted:.3f}; "
+                f"CPU ms={cpu_ms:.1f}")
+            out[f"cpu_ms_{precision}_{name}"] = cpu_ms
+
+    drawer = CpuDrawer(stylesheet_dir=STYLESHEET_DIR)
+    p = renderers["exact"].prepare(z15, 1)
+    got = renderers["exact"].render_prepared(p).cpu().numpy()
+    worst, frac, checked = 0, 0.0, 0
+    for i, (ents, t) in enumerate(z15):
+        if i in p.cpu_fallback_tiles:
+            continue
+        want = drawer.draw_to_pixels(ents, t, 1, styler)
+        d = np.abs(want.astype(int) - got[i].astype(int))
+        worst, frac = max(worst, int(d.max())), max(frac, float((d > 0).mean()))
+        checked += 1
+        if d.max() > 1 or (d > 0).mean() >= 0.01:
+            raise AssertionError(f"dense exact {t}: max |diff| {d.max()}, "
+                                 f"{100 * (d > 0).mean():.3f} % of values off the oracle")
+    log(f"  (b) exact minicity z15 x{len(z15)} vs CpuDrawer: {checked} tiles checked "
+        f"({len(p.cpu_fallback_tiles)} left to the oracle), max |diff| {worst}, worst tile "
+        f"{100 * frac:.4f} % of values off")
+
+    for precision in ("exact", "fast"):
+        batch, canvas, ts, chunk, chain, plan = prepared(precision, z15, 1)
+        pend = RD.alphas(batch, plan, chain)
+        p1 = _event_ms(lambda: RD.alphas(batch, plan, chain))
+        p2 = _event_ms(lambda: RD.blend(batch, canvas, plan, pend))
+        total = _event_ms(lambda: RD.render_batch(batch, canvas, ts, chunk, precision, chain,
+                                                  plan))
+        ops = _device_launches(lambda: RD.render_batch(batch, canvas, ts, chunk, precision,
+                                                       chain, plan))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        RD.render_batch(batch, canvas, ts, chunk, precision, chain, plan)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        stroke_px = sum(n for _, _, n in plan.stroke_passes)
+        fill_px = sum(q[3] for _, _, passes in plan.fills for q in passes)
+        log(f"  (c) {smi}: {precision} minicity z15 x{len(z15)} (C={batch.chunk_kind.shape[1]}, "
+            f"{plan.strokes.shape[0]} segments over {stroke_px} px in "
+            f"{len(plan.stroke_passes)} passes, {fill_px} fill px, {plan.groups.shape[0]} "
+            f"primitives in {len(plan.levels)} levels): total ms={total:.2f} "
+            f"(phase 1 {p1:.2f}, phase 2 {p2:.2f}); device operations={ops}; "
+            f"peak memory {peak / 2**20:.1f} MiB")
+        out[precision] = dict(total_ms=total, phase1_ms=p1, phase2_ms=p2, launches=ops,
+                              peak_bytes=peak)
+
+
 def fetch(url: str, timeout: float = 300.0):
     with urllib.request.urlopen(url, timeout=timeout) as resp:
         return resp.status, resp.read()
 
 
-def phase_server(styler, rows_out, device="cuda"):
+def phase_server(styler, rows_out, device="cuda", precision="fast"):
+    """renderer_main serving the minicity (labels = yes) under the import
+    guard.  precision "fast": the kernels' path, >= 32 distinct tiles;
+    "exact": the dense renderer, >= 16 distinct tiles, and no kernel or
+    wire may run."""
     import socket
 
     import numpy as np
@@ -827,16 +997,16 @@ def phase_server(styler, rows_out, device="cuda"):
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         port = s.getsockname()[1]
-    conf = os.path.join(OUT_DIR, "server.conf")
+    exact = precision == "exact"
+    conf = os.path.join(OUT_DIR, f"server_{precision}.conf")
     with open(conf, "w") as f:
         f.write(
             f"[http]\naddress = 127.0.0.1:{port}\n[geodata]\nfile = {MINI_BIN}\n"
             f"[style]\nfile = {os.path.join(STYLESHEET_DIR, 'default.mapcss')}\ntype = josm\n"
-            f"[render]\nbackend = device\ndevice = {device}\nlabels = yes\n"
-            "png-level = 1\n"
-            "warmup = yes\n"
+            f"[render]\nbackend = device\ndevice = {device}\nprecision = {precision}\n"
+            "labels = yes\npng-level = 1\nwarmup = yes\n"
         )
-    log_path = os.path.join(OUT_DIR, "server.log")
+    log_path = os.path.join(OUT_DIR, "server.log" if not exact else "server_exact.log")
     launcher = _NO_JAX + (
         "import runpy\nsys.argv = ['renderer_main', sys.argv[1]]\n"
         "runpy.run_module('osm_renderer_tpu_torch.cli.renderer_main', run_name='__main__')\n"
@@ -845,11 +1015,12 @@ def phase_server(styler, rows_out, device="cuda"):
     from osm_renderer_tpu_torch.core.tile import Tile
 
     z15 = z_tiles(reader, 15)
-    reqs = [(t, 1) for t in z15[:20]] + [(t, 2) for t in z15[:6]]
+    n15, n2x, nz = (8, 3, 2) if exact else (20, 6, 3)
+    reqs = [(t, 1) for t in z15[:n15]] + [(t, 2) for t in z15[:n2x]]
     for z in (13, 14, 16, 17):
-        reqs += [(t, 1) for t in z_tiles(reader, z)[:3]]
+        reqs += [(t, 1) for t in z_tiles(reader, z)[:nz]]
     reqs += [(Tile(16, z15[0].x * 2, z15[0].y * 2), 2)]
-    if len(set(reqs)) < 32:
+    if len(set(reqs)) < (16 if exact else 32):
         raise AssertionError(f"only {len(set(reqs))} distinct tiles to request")
 
     with open(log_path, "w") as logf:
@@ -902,14 +1073,24 @@ def phase_server(styler, rows_out, device="cuda"):
             if line.startswith(f"{what} while serving:"):
                 counts[what] = {k: int(v) for k, v in
                                 (kv.split("=") for kv in line.split(":", 1)[1].split())}
-    if not all(launches.get(k) for k in ("render", "emit", "expand")):
-        raise AssertionError(f"server did not launch every kernel while serving ({launches}):"
-                             f"\n{text[-4000:]}")
     batches = counts.get("batches", {})
-    if not batches.get("arena") or not batches.get("v2"):
-        raise AssertionError(f"server served no arena batch or no v2 wire batch ({batches})")
-    if not batches.get("labeled_tiles"):
-        raise AssertionError(f"server labeled no tile on the device ({batches})")
+    if exact:
+        if len(launches) != 3 or any(launches.values()):
+            raise AssertionError(f"the exact server launched kernels ({launches}):"
+                                 f"\n{text[-4000:]}")
+        if not batches.get("dense") or any(batches.get(k) for k in ("arena", "plain", "v1",
+                                                                    "v2", "labeled_tiles")):
+            raise AssertionError(f"the exact server did not serve dense batches only "
+                                 f"({batches})")
+    else:
+        if not all(launches.get(k) for k in ("render", "emit", "expand")):
+            raise AssertionError(f"server did not launch every kernel while serving "
+                                 f"({launches}):\n{text[-4000:]}")
+        if not batches.get("arena") or not batches.get("v2"):
+            raise AssertionError(f"server served no arena batch or no v2 wire batch "
+                                 f"({batches})")
+        if not batches.get("labeled_tiles"):
+            raise AssertionError(f"server labeled no tile on the device ({batches})")
 
     from osm_renderer_tpu_torch.draw.labels.labeler import Labeler
 
@@ -944,7 +1125,8 @@ def phase_server(styler, rows_out, device="cuda"):
         raise AssertionError(f"{n_unlabeled} unlabeled and {n_labeled} labeled tiles served: "
                              "both kinds are needed")
     rb = counts.get("readback bytes", {})
-    log(f"  served {len(reqs)} distinct tiles in {serve_s:.2f} s: all HTTP 200 + PNG; "
+    log(f"  served {len(reqs)} distinct tiles ({precision}) in {serve_s:.2f} s: "
+        "all HTTP 200 + PNG; "
         f"{n_unlabeled} unlabeled tiles max |diff| vs oracle = {worst_unlabeled}; "
         f"{n_labeled} labeled tiles max |diff| vs oracle + host composite = {worst_labeled}")
     log(f"  kernel launches while serving: {launches}; batches: {batches}; "
@@ -1064,9 +1246,22 @@ def main() -> int:
         "of the host composite, (c) alpha = 1 cores and outside the label bbox exact)")
     phase_labeled(device, styler)
 
+    log("phase 4c: dense renderer (ops/render_dense.py) on the card "
+        "(bars: (a) CUDA byte-identical to the CPU, exact and fast; (b) exact <= 1/255 of "
+        "CpuDrawer with < 1 % of values off)")
+    dense: dict = {}
+    t0 = time.perf_counter()
+    phase_dense(device, styler, smi, dense)
+    log(f"  phase 4c took {time.perf_counter() - t0:.1f} s ({smi})")
+
     log("phase 5: served path (renderer_main, backend = device, labels = yes)")
     served: dict = {}
     phase_server(styler, served)
+
+    log("phase 5b: served exact (renderer_main, precision = exact, labels = yes)")
+    t0 = time.perf_counter()
+    phase_server(styler, {}, precision="exact")
+    log(f"  phase 5b took {time.perf_counter() - t0:.1f} s ({smi})")
 
     log("phase 6: warm served path in process (PNG cache off; labels off, then on)")
     phase_inprocess(styler, device)

@@ -15,7 +15,7 @@ Same INI surface as `osm_renderer_tpu.cli.renderer_main`:
     backend = device       ; the default; or cpu (the C++ oracle, no GPU)
     device = cuda          ; CUDA device for backend = device (cuda, cuda:N)
     gpus = 1               ; one GPU only for now
-    precision = fast       ; the only precision of the CUDA backend
+    precision = fast       ; fast, or exact (the dense f64 renderer)
     png-level = 1
     labels = yes
     png-cache = 512
@@ -25,9 +25,10 @@ An INI without a `backend` line serves from the card (`device`
 defaults to `cuda`); `backend = cpu` is the way to ask for the oracle.
 With backend = device, the server prints, when it shuts down, the
 launches of each kernel made while serving (render, run emit, palette
-expand) and the batches it served by path: arena or plain upload, and
-v1 wire, v2 wire or raw planar readback, beside the tiles whose labels
-were blended on the device (`labeled_tiles`).  Both backends run the
+expand) and the batches it served by path: arena or plain upload or
+dense (`precision = exact`), and v1 wire, v2 wire or raw planar
+readback, beside the tiles whose labels were blended on the device
+(`labeled_tiles`).  Both backends run the
 port's own server and labeler and need neither jax nor fontTools.
 """
 

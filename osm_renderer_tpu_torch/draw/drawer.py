@@ -1,16 +1,25 @@
 """Per-tile rendering orchestration.
 
+Two interchangeable backends with identical output:
+
 * `CpuDrawer` — drives the C++ oracle rasterizer entity-by-entity,
   replicating the reference's `Drawer::draw_to_pixels` exactly
   (drawer.rs:60-131): reset -> fills -> casings -> strokes -> blend ->
   labels -> blend -> RGB.
+* `DeviceDrawer` — assembles the same paint-ordered primitives into a
+  chunk stream and renders fills/strokes on the device with the dense
+  exact renderer (ops/render_dense.py); labels are placed and
+  composited on the host over the device output.
 """
 
 from __future__ import annotations
 
+from typing import List, Tuple
+
 import numpy as np
 
 from osm_renderer_tpu_torch.core.tile import Tile
+from osm_renderer_tpu_torch.draw import primitives as prim_mod
 from osm_renderer_tpu_torch.draw.oracle import OracleTile
 from osm_renderer_tpu_torch.draw.primitives import FillPrim, StrokePrim, assemble_tile_prims
 from osm_renderer_tpu_torch.mapcss.styler import Styler
@@ -92,3 +101,82 @@ class CpuDrawer:
             p.use_caps_for_dashes,
         )
 
+
+
+class DeviceDrawer:
+    """Device rendering path: batched fills/strokes on one device
+    (`device="cpu"` runs the dense renderer on the CPU; only the tests
+    ask for it)."""
+
+    def __init__(
+        self,
+        labeler=None,
+        chunk_size: int = 64,
+        stylesheet_dir=None,
+        device: str = "cuda",
+    ):
+        from osm_renderer_tpu_torch.utils.torch_setup import resolve_device
+
+        self.labeler = labeler
+        self.chunk_size = chunk_size
+        self.device = resolve_device(device)
+        self.icon_cache = None
+        if stylesheet_dir is not None:
+            from osm_renderer_tpu_torch.draw.labels.icons import IconCache
+
+            self.icon_cache = IconCache(stylesheet_dir)
+
+    def render_tiles(
+        self, tiles_entities: List[Tuple[object, Tile]], scale: int, styler: Styler
+    ) -> np.ndarray:
+        """Render a batch of tiles -> (T, ts, ts, 3) uint8."""
+        import torch
+
+        from osm_renderer_tpu_torch.ops.render_dense import (
+            PIXEL_BUDGET,
+            TileBatch,
+            plan_batch,
+            render_batch,
+        )
+
+        profiles = prim_mod.ProfileTable()
+        patterns = prim_mod.PatternTable(self.icon_cache, 256 * scale)
+        streams = []
+        all_prims = []
+        chunk = self.chunk_size
+        for entities, tile in tiles_entities:
+            prims = assemble_tile_prims(entities, tile, float(scale), styler)
+            all_prims.append(prims)
+            max_fill = max(
+                (p.edges.shape[0] for p in prims if isinstance(p, FillPrim)),
+                default=0,
+            )
+            while chunk < max_fill:
+                chunk *= 2
+        for prims in all_prims:
+            streams.append(prim_mod.stream_tile(prims, profiles, chunk, patterns))
+
+        batch = prim_mod.build_batch(
+            streams, profiles, chunk, patterns=patterns, ts=256 * scale
+        )
+        canvas = styler.canvas_fill_color
+        if canvas is None:
+            canvas_rgb = torch.zeros(3, dtype=torch.float64)
+        else:
+            canvas_rgb = torch.tensor(
+                [canvas.r / 255.0, canvas.g / 255.0, canvas.b / 255.0],
+                dtype=torch.float64,
+            )
+        ts = 256 * scale
+        plan = plan_batch(batch, ts, chunk, "exact", PIXEL_BUDGET[self.device.type])
+        out = render_batch(
+            TileBatch.from_numpy(batch, self.device), canvas_rgb.to(self.device), ts, chunk,
+            chain=profiles.has_round_caps(), plan=plan,
+        ).cpu().numpy()
+
+        if self.labeler is not None:
+            for i, (entities, tile) in enumerate(tiles_entities):
+                out[i] = self.labeler.composite_labels(
+                    out[i], entities, tile, float(scale), styler
+                )
+        return out

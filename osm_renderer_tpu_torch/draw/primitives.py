@@ -889,3 +889,76 @@ def stream_tile(
                 )
     return ts
 
+
+def build_batch(
+    tile_streams: List[TileStream],
+    profiles: ProfileTable,
+    chunk_size: int,
+    dtype=np.float64,
+    patterns: Optional[PatternTable] = None,
+    ts: int = 256,
+):
+    """Stack per-tile streams into the padded TileBatch arrays."""
+    from osm_renderer_tpu_torch.ops.render_dense import TileBatch
+    from osm_renderer_tpu_torch.utils.torch_setup import next_pow2
+
+    T = len(tile_streams)
+    # Bucket shapes to powers of two for stable jit signatures (the
+    # persistent compilation cache then makes compiles one-time).
+    C = next_pow2(max((len(s.chunk_kind) for s in tile_streams), default=1), 8)
+    G = next_pow2(
+        max((s.geom_len for s in tile_streams), default=1) + chunk_size, 64
+    )
+
+    geom = np.zeros((T, G, 4), dtype=np.int32)
+    traveled = np.zeros((T, G), dtype=dtype)
+    gprof = np.zeros((T, G), dtype=np.int32)
+    kind = np.zeros((T, C), dtype=np.int32)
+    off = np.zeros((T, C), dtype=np.int32)
+    cnt = np.zeros((T, C), dtype=np.int32)
+    last = np.zeros((T, C), dtype=bool)
+    color = np.zeros((T, C, 3), dtype=dtype)
+    opacity = np.zeros((T, C), dtype=dtype)
+    hw = np.zeros((T, C), dtype=dtype)
+    pat = np.full((T, C), -1, dtype=np.int32)
+
+    for t, s in enumerate(tile_streams):
+        if s.geom_len:
+            g = np.concatenate(s.geom, axis=0)
+            geom[t, : s.geom_len] = g
+            traveled[t, : s.geom_len] = np.concatenate(s.traveled)
+            gprof[t, : s.geom_len] = np.concatenate(s.profile)
+        n = len(s.chunk_kind)
+        if n:
+            kind[t, :n] = s.chunk_kind
+            off[t, :n] = s.chunk_off
+            cnt[t, :n] = s.chunk_cnt
+            last[t, :n] = s.chunk_last
+            color[t, :n] = s.chunk_color
+            opacity[t, :n] = s.chunk_opacity
+            hw[t, :n] = s.chunk_hw
+            pat[t, :n] = s.chunk_pat
+
+    if patterns is not None and patterns.tiles:
+        pat_arr = patterns.array().transpose(0, 2, 3, 1).astype(dtype)
+        ts = patterns.ts
+    else:
+        pat_arr = np.zeros((1, ts, ts, 4), dtype=dtype)
+
+    prof_rows, prof_totals = profiles.arrays(dtype)
+    return TileBatch(
+        geom=geom,
+        geom_traveled=traveled,
+        geom_profile=gprof,
+        chunk_kind=kind,
+        chunk_off=off,
+        chunk_cnt=cnt,
+        chunk_last=last,
+        chunk_color=color,
+        chunk_opacity=opacity,
+        chunk_hw=hw,
+        profiles=prof_rows,
+        profile_total=prof_totals,
+        chunk_pat=pat,
+        patterns=pat_arr,
+    )

@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from osm_renderer_tpu_torch.ops.chunk_layout import CH, IT_CAP
+from osm_renderer_tpu_torch.utils.torch_setup import resolve_device
 
 IT_ARENA = IT_CAP  # arena item width: every per-tile width fits
 
@@ -51,8 +52,8 @@ class ChunkArena:
 
     MAX_CAP = 65536  # 65k rows x ~13 KB/row ~= 870 MB of device memory
 
-    def __init__(self, min_cap: int = 4096, device="cpu"):
-        self.device = torch.device(device)
+    def __init__(self, min_cap: int = 4096, device="cuda"):
+        self.device = resolve_device(device) if isinstance(device, str) else device
         self.min_cap = min_cap
         self.cap = 0
         self.geom: Optional[torch.Tensor] = None   # (cap, 4, CH) i32

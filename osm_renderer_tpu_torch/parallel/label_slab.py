@@ -39,6 +39,8 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
+from osm_renderer_tpu_torch.utils.torch_setup import resolve_device
+
 IDENTITY_A16P = 65535  # plane1 value whose blend is an exact passthrough
 
 
@@ -101,9 +103,9 @@ class LabelSlab:
 
     MAX_CAP = 65536  # rows; 2 KB/row at ts=256 -> 128 MB of device memory
 
-    def __init__(self, ts: int, min_cap: int = 1024, device="cpu", max_tiles: int = 4096):
+    def __init__(self, ts: int, min_cap: int = 1024, device="cuda", max_tiles: int = 4096):
         self.ts = ts
-        self.device = torch.device(device)
+        self.device = resolve_device(device) if isinstance(device, str) else device
         self.min_cap = min_cap
         self.max_tiles = max_tiles
         self.cap = 0

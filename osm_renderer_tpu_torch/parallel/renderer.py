@@ -1,10 +1,18 @@
 """Batched device rendering on one CUDA device.
 
 Counterpart of `osm_renderer_tpu.parallel.renderer.BatchRenderer` on one
-device.  Per-tile chunk arrays are cached per tile.  With the chunk
-arena on (`arena=True`, the server's default), a batch uploads one small
-packed buffer and gathers the tiles' big chunk fields from the
-device-resident arena (`parallel.arena`); otherwise the batch's chunk
+device.  `backend="dense"` is the reference's "jnp" backend: each batch
+streams its tiles' primitives (`draw.primitives.stream_tile`), stacks
+them with `build_batch` and renders them with `ops.render_dense` in the
+batch's `precision` ("exact": int64/f64, the only way to draw geometry
+past the fast path's coordinate bound; "fast": int32/f32), and the
+(T, ts, ts, 3) batch is read back raw.  The default backend, "cuda", is
+the kernels' path described below.
+
+Per-tile chunk arrays are cached per tile.  With the chunk arena on
+(`arena=True`, the server's default), a batch uploads one small packed
+buffer and gathers the tiles' big chunk fields from the device-resident
+arena (`parallel.arena`); otherwise the batch's chunk
 arrays are concatenated and uploaded.  The CUDA render kernel
 (`ops.render_cuda`) writes a u8 planar (T, 4, ts, ts) batch, and the run
 emit and palette expand kernels (`ops.rle_cuda`) turn it into one wire
@@ -26,10 +34,11 @@ import torch
 from osm_renderer_tpu_torch.core.tile import Tile
 from osm_renderer_tpu_torch.draw import png_writer
 from osm_renderer_tpu_torch.draw import primitives as prim_mod
-from osm_renderer_tpu_torch.draw.primitives import FAST_COORD_BOUND, assemble_tile_prims
+from osm_renderer_tpu_torch.draw.primitives import FAST_COORD_BOUND, FillPrim, assemble_tile_prims
 from osm_renderer_tpu_torch.mapcss.styler import Styler
 from osm_renderer_tpu_torch.draw import native_assembler as _na
 from osm_renderer_tpu_torch.ops import chunk_layout as L
+from osm_renderer_tpu_torch.ops import render_dense as RD
 from osm_renderer_tpu_torch.ops import render_cuda as RC
 from osm_renderer_tpu_torch.ops import rle_cuda as RLE
 from osm_renderer_tpu_torch.ops import rle_layout
@@ -39,10 +48,10 @@ from osm_renderer_tpu_torch.utils.torch_setup import next_pow2, resolve_device
 
 
 class PreparedBatch(NamedTuple):
-    batch: Optional[RC.CudaBatch]  # None on the arena path
+    batch: object  # RC.CudaBatch, RD.TileBatch (dense), or None on the arena path
     canvas_rgb: torch.Tensor
     ts: int
-    chunk: int  # n_tiles
+    chunk: int  # n_tiles; the chunk size on the dense backend
     cpu_fallback_tiles: tuple = ()  # tile indices the device path can't draw
     # Arena path: the packed small-field buffer is the only per-batch
     # upload, and the big chunk fields are gathered from the arena.
@@ -53,6 +62,11 @@ class PreparedBatch(NamedTuple):
     label_rows: Optional[np.ndarray] = None     # (T, 3) i32, or None
     label_ctx: object = None                    # (slab, slab.generation)
     device_labeled: tuple = ()                  # tile indices blitted on the device
+    # Dense backend: "exact" or "fast" ("cuda" on the kernels' path), the
+    # walk-chain flag (round-capped dashes) and the host schedule.
+    precision: str = "cuda"
+    chain: bool = False
+    plan: Optional[RD.BatchPlan] = None
 
 
 class RleRendered(NamedTuple):
@@ -95,7 +109,10 @@ def wait_executed(res: RleRendered) -> None:
 
 class BatchRenderer:
     """One CUDA device's renderer (`device="cpu"` runs the kernels' plain
-    versions; only the tests ask for it)."""
+    versions, or the dense renderer on the CPU; only the tests ask for
+    it).  backend="cuda" (the kernels, default) or "dense" (the
+    reference's jnp renderer); `precision` and `chunk_size` apply to the
+    dense backend."""
 
     # Host-rasterized layers (out-of-bound prims) accumulate in a
     # persistent pattern table as their tiles churn through the cache;
@@ -115,8 +132,18 @@ class BatchRenderer:
         chunk_cache_tiles: int = 0,
         device: str = "cuda",
         arena: bool = False,
+        backend: str = "cuda",
+        precision: str = "fast",
+        chunk_size: int = 64,
     ):
+        if backend not in ("cuda", "dense"):
+            raise ValueError(f"unknown backend {backend!r} (use 'cuda' or 'dense')")
+        if backend == "dense":
+            RD._dtypes(precision)  # raises on an unknown precision
         self.device = resolve_device(device) if isinstance(device, str) else device
+        self.backend = backend
+        self.precision = precision
+        self.chunk_size = chunk_size
         self.styler = styler
         self.tile_bucket = tile_bucket
         self.chunk_cache_tiles = chunk_cache_tiles
@@ -133,7 +160,7 @@ class BatchRenderer:
         self._persist_tables: dict = {}   # scale -> (ProfileTable, PatternTable)
         self._patterns_dev: dict = {}     # scale -> (n_tiles_in_table, tensor)
         self._profiles_dev: dict = {}     # scale -> (n_rows, rows, totals)
-        self._canvas_dev: Optional[torch.Tensor] = None
+        self._canvas_dev: dict = {}       # numpy dtype -> canvas tensor
         self._empty_chunks: dict = {}     # ts -> TileChunks (PAD-only)
         # Device-resident chunk arena, tied to the chunk cache's lifecycle.
         self.chunk_arena = (
@@ -145,7 +172,7 @@ class BatchRenderer:
         # Batches by path, tiles labeled on the device, and bytes read
         # back: the wires, and the raw planar batches they stand for (the
         # server logs both).
-        self.batch_counts = {"arena": 0, "plain": 0, "v1": 0, "v2": 0, "raw": 0,
+        self.batch_counts = {"arena": 0, "plain": 0, "dense": 0, "v1": 0, "v2": 0, "raw": 0,
                              "labeled_tiles": 0}
         self.readback_bytes = {"wire": 0, "planar": 0}
         self.icon_cache = None
@@ -153,7 +180,8 @@ class BatchRenderer:
             from osm_renderer_tpu_torch.draw.labels.icons import IconCache
 
             self.icon_cache = IconCache(stylesheet_dir)
-        _na.get_native()
+        if backend == "cuda":
+            _na.get_native()
 
     def prepare(
         self, tiles_entities: Sequence[Tuple[object, Tile]], scale: int = 1,
@@ -164,6 +192,8 @@ class BatchRenderer:
         path labeled tiles are blended on the device
         (`PreparedBatch.device_labeled`); elsewhere the hint is ignored
         and callers keep the host composite."""
+        if self.backend == "dense":
+            return self._prepare_dense(tiles_entities, scale)
         ts_px = 256 * scale
         profiles, patterns = self._tables_for(scale)
         tile_chunks = []
@@ -259,6 +289,39 @@ class BatchRenderer:
         )
         return PreparedBatch(batch, canvas, ts_px, n_tiles, tuple(fallback))
 
+    def _prepare_dense(self, tiles_entities, scale: int) -> PreparedBatch:
+        """The reference's jnp prepare: fresh tables, the chunk doubled
+        until it holds the largest fill (every fill is one chunk), tiles
+        with icon fills left to the oracle, coordinates checked only for
+        the fast precision.  The schedule is planned before the upload."""
+        dtype = np.float32 if self.precision == "fast" else np.float64
+        ts_px = 256 * scale
+        profiles = prim_mod.ProfileTable()
+        patterns = prim_mod.PatternTable(self.icon_cache, ts_px)
+        all_prims = []
+        chunk = self.chunk_size
+        for entities, tile in tiles_entities:
+            prims = assemble_tile_prims(entities, tile, float(scale), self.styler)
+            all_prims.append(prims)
+            max_fill = max(
+                (p.edges.shape[0] for p in prims if isinstance(p, FillPrim)), default=0
+            )
+            while chunk < max_fill:
+                chunk *= 2
+        streams = [prim_mod.stream_tile(prims, profiles, chunk, patterns) for prims in all_prims]
+        fallback = tuple(i for i, st in enumerate(streams) if st.has_icon_fills)
+        arrays = prim_mod.build_batch(streams, profiles, chunk, dtype=dtype, patterns=patterns,
+                                      ts=ts_px)
+        if self.precision == "fast":
+            self._check_coords(arrays.geom)
+        plan = RD.plan_batch(arrays, ts_px, chunk, self.precision,
+                             RD.PIXEL_BUDGET[self.device.type])
+        return PreparedBatch(
+            RD.TileBatch.from_numpy(arrays, self.device), self._canvas_tensor(dtype), ts_px,
+            chunk, fallback, precision=self.precision, chain=profiles.has_round_caps(),
+            plan=plan,
+        )
+
     def _finalize_arena(
         self, tile_chunks, tile_keys, profiles, patterns, ts_px, n_tiles, fallback, scale,
         label_layers=None,
@@ -324,15 +387,16 @@ class BatchRenderer:
             got = self._label_slabs[ts_px] = LabelSlab(ts_px, device=self.device)
         return got
 
-    def _canvas(self) -> np.ndarray:
+    def _canvas(self, dtype=np.float32) -> np.ndarray:
         canvas = self.styler.canvas_fill_color
         rgb = [canvas.r, canvas.g, canvas.b] if canvas is not None else [0, 0, 0]
-        return np.array(rgb, dtype=np.float32) / np.float32(255.0)
+        return np.array(rgb, dtype=dtype) / 255.0
 
-    def _canvas_tensor(self) -> torch.Tensor:
-        if self._canvas_dev is None:
-            self._canvas_dev = torch.from_numpy(self._canvas()).to(self.device)
-        return self._canvas_dev
+    def _canvas_tensor(self, dtype=np.float32) -> torch.Tensor:
+        got = self._canvas_dev.get(dtype)
+        if got is None:
+            got = self._canvas_dev[dtype] = torch.from_numpy(self._canvas(dtype)).to(self.device)
+        return got
 
     def _check_coords(self, geom) -> None:
         max_coord = int(np.abs(geom).max()) if geom.size else 0
@@ -368,7 +432,10 @@ class BatchRenderer:
                 slab.clear()
 
     def render_prepared_planar(self, prepared: PreparedBatch) -> torch.Tensor:
-        """(T, 4, ts, ts) u8 on the device, not synchronised."""
+        """(T, 4, ts, ts) u8 on the device, not synchronised (kernels'
+        path only)."""
+        if prepared.precision != "cuda":
+            raise ValueError("a dense batch has no planar output; use render_prepared")
         if prepared.arena_packed is not None:
             arena, prof_dev, tot_dev, pat_dev, gen = prepared.arena_ctx
             if gen != arena.generation:
@@ -397,8 +464,19 @@ class BatchRenderer:
         return out
 
     def render_prepared(self, prepared: PreparedBatch) -> torch.Tensor:
-        """(T, ts, ts, 3) u8 view of the planar output."""
+        """(T, ts, ts, 3) u8 on the device, not synchronised: the dense
+        render, or a view of the kernels' planar output."""
+        if prepared.precision != "cuda":
+            out = RD.render_batch(prepared.batch, prepared.canvas_rgb, prepared.ts,
+                                  prepared.chunk, prepared.precision, prepared.chain,
+                                  prepared.plan)
+            self.batch_counts["dense"] += 1
+            return out
         return self.render_prepared_planar(prepared)[:, :3].permute(0, 2, 3, 1)
+
+    def render(self, tiles_entities: Sequence[Tuple[object, Tile]], scale: int = 1) -> np.ndarray:
+        """Prepare, render and read back -> (T, ts, ts, 3) u8."""
+        return self.render_prepared(self.prepare(tiles_entities, scale)).cpu().numpy()
 
     # ------------------------------------------------------------- wire --
 

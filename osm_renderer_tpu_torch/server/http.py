@@ -15,6 +15,12 @@ PNG-8 straight from the v2 wire where the native encoder is built; the
 others decode to RGB, and labeled tiles the device did not label (plain
 upload batches under `osm_ids`) get their labels composited on the host.
 
+`precision = "exact"` serves as the original does: a dense renderer
+(`BatchRenderer(backend="dense", precision="exact")`, int64/f64) on the
+service's device, with no chunk cache, no arena and no icon patterns
+(tiles with icon fills go to the oracle); each batch is read back raw
+and its labeled tiles are composited on the host.
+
 Both backends label with the port's fontTools-free labeler; the device
 loop is the original's cut to one device.
 """
@@ -27,6 +33,8 @@ import time
 from collections import OrderedDict
 from typing import Dict, List, Optional, Set, Tuple
 
+import torch
+
 from osm_renderer_tpu_torch import perfstats
 from osm_renderer_tpu_torch.core.tile import MAX_ZOOM, Tile
 from osm_renderer_tpu_torch.draw.drawer import CpuDrawer
@@ -35,6 +43,7 @@ from osm_renderer_tpu_torch.geodata.reader import GeodataReader
 from osm_renderer_tpu_torch.mapcss.styler import Styler
 from osm_renderer_tpu_torch.parallel.renderer import (
     BatchRenderer,
+    RleTileView,
     start_wire_copy,
     wait_executed,
 )
@@ -70,7 +79,9 @@ def extract_tile_from_path(path: str) -> Optional[Tuple[Tile, int]]:
 class TileService:
     """Tile service.  `backend="device"` renders on one CUDA device
     (`device="cpu"` runs the kernels' plain versions; only the tests ask
-    for it); `backend="cpu"` renders each tile with the C++ oracle."""
+    for it): `precision="fast"` through the kernels, `"exact"` through
+    the dense renderer.  `backend="cpu"` renders each tile with the C++
+    oracle."""
 
     # Cold-heavy groups stream in sub-batches of this many tiles: host
     # assembly of sub-batch N+1 overlaps the device work of sub-batch N.
@@ -94,10 +105,8 @@ class TileService:
             raise ValueError(f"unknown backend {backend!r} (use 'device' or 'cpu')")
         if backend == "device" and gpus != 1:
             raise ValueError(f"serving on {gpus} GPUs is not supported yet (one GPU only)")
-        if backend == "device" and precision != "fast":
-            raise ValueError(
-                f"precision {precision!r} is not supported by the CUDA backend (only 'fast')"
-            )
+        if precision not in ("fast", "exact"):
+            raise ValueError(f"unknown precision {precision!r} (use 'fast' or 'exact')")
         build_native_host_libs()
         self.reader = GeodataReader.load(geodata_file)
         self.styler = styler
@@ -128,6 +137,10 @@ class TileService:
         if backend == "cpu":
             return
         self.device = resolve_device(device)
+        if precision == "exact":
+            self.batch_renderer = BatchRenderer(
+                styler, backend="dense", precision="exact", device=self.device)
+            return
         self.batch_renderer = BatchRenderer(
             styler, stylesheet_dir=stylesheet_dir, tile_bucket=True,
             chunk_cache_tiles=0 if osm_ids else 512, device=self.device,
@@ -195,11 +208,15 @@ class TileService:
                                compacts=None):
         """Prepare, launch the kernels and queue the wire's copy to the
         host, without waiting for the device.  `compacts`: the tiles'
-        committed label layers, blended on the device on the arena path."""
+        committed label layers, blended on the device on the arena path.
+        A dense batch is queued as its raw (T, ts, ts, 3) output."""
         prepared = self.batch_renderer.prepare(tiles_entities, scale, label_layers=compacts)
         prep_dt = time.perf_counter() - t_prep0
         t0 = time.perf_counter()
-        res = start_wire_copy(self.batch_renderer.render_prepared_rle(prepared))
+        if prepared.precision != "cuda":
+            res = self.batch_renderer.render_prepared(prepared)
+        else:
+            res = start_wire_copy(self.batch_renderer.render_prepared_rle(prepared))
         return (res, set(prepared.cpu_fallback_tiles), prep_dt, t0,
                 set(prepared.device_labeled))
 
@@ -209,6 +226,16 @@ class TileService:
         Execute (dispatch to kernels done) and readback (wire copy and
         parse, or the raw planar fetch on overflow) are separate spans."""
         res, needs_cpu, prep_dt, t0, device_labeled = pending
+        if isinstance(res, torch.Tensor):
+            # Dense batch: wait, then one device-to-host copy.
+            if res.is_cuda:
+                torch.cuda.synchronize(res.device)
+            exec_dt = time.perf_counter() - t0
+            t1 = time.perf_counter()
+            rgb = res.cpu().numpy()
+            view = RleTileView(rgb.shape[0], rgb.shape[1], rgb=rgb)
+            d2h_dt = time.perf_counter() - t1
+            return view, needs_cpu, prep_dt, exec_dt, d2h_dt, device_labeled
         wait_executed(res)
         exec_dt = time.perf_counter() - t0
         t1 = time.perf_counter()

@@ -12,6 +12,7 @@ eviction and re-insert, growth, tile-bucket padding and @2x.
 
 import numpy as np
 import pytest
+import torch
 
 from osm_renderer_tpu.ops import render_pallas as RP
 from osm_renderer_tpu.parallel.arena import ChunkArena as JaxArena
@@ -71,7 +72,7 @@ def _assert_same_rows(port, jax_arena):
 def test_arena_matches_jax_arena(tile_chunks):
     """One scripted insert / free / grow / clear sequence through both
     arenas: the same allocation decisions and the same rows."""
-    port, ref = ChunkArena(min_cap=16), JaxArena(min_cap=16)
+    port, ref = ChunkArena(min_cap=16, device="cpu"), JaxArena(min_cap=16)
     n = len(tile_chunks)
     script = [
         ("insert", range(0, 4)),        # grows from 0 rows, then doubles
@@ -104,7 +105,7 @@ def test_arena_matches_jax_arena(tile_chunks):
 
 
 def test_arena_exhaustion_raises(tile_chunks):
-    port, ref = ChunkArena(min_cap=16), JaxArena(min_cap=16)
+    port, ref = ChunkArena(min_cap=16, device="cpu"), JaxArena(min_cap=16)
     for arena in (port, ref):
         arena.MAX_CAP = 32
         with pytest.raises(MemoryError):
@@ -112,7 +113,7 @@ def test_arena_exhaustion_raises(tile_chunks):
 
 
 def test_pack_small_arena_byte_identical(tile_chunks):
-    port = ChunkArena(min_cap=16)
+    port = ChunkArena(min_cap=16, device="cpu")
     port.insert(tile_chunks)
     for scale in (1, 2):
         pairs = [(k, c) for k, c in tile_chunks if k[3] == scale]
@@ -192,3 +193,19 @@ def test_arena_exhaustion_takes_the_plain_upload(scene):
     assert prep.batch is not None and prep.arena_packed is None
     assert tight.chunk_arena.generation == gen + 1
     np.testing.assert_array_equal(tight.render_prepared_planar(prep).numpy(), ref)
+
+
+def test_arena_and_slab_default_to_the_card():
+    """The device arena and the label slab run on CUDA unless the caller
+    names the CPU: on a host without a usable card their defaults raise
+    instead of falling back."""
+    from osm_renderer_tpu_torch.parallel.label_slab import LabelSlab
+
+    assert ChunkArena(min_cap=16, device="cpu").device == torch.device("cpu")
+    assert LabelSlab(32, min_cap=8, device="cpu").device == torch.device("cpu")
+    if torch.cuda.is_available():
+        pytest.skip("this host has a usable CUDA device")
+    with pytest.raises(RuntimeError):
+        ChunkArena(min_cap=16)
+    with pytest.raises(RuntimeError):
+        LabelSlab(32, min_cap=8)

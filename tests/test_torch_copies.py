@@ -13,7 +13,8 @@ stylers give equal styles for every entity of those tiles
 `CpuDrawer` gives byte-identical pixels at @1x and @2x, labels
 included; `rgb_to_png` gives equal bytes (native encoder and zlib);
 `labelable` gives equal waypoints and label positions; the perfstats
-span trees of the drawer runs are equal.  No file of the port imports
+span trees of the drawer runs are equal; `build_batch` stacks equal
+arrays from both packages' streams.  No file of the port imports
 the JAX package.
 """
 
@@ -208,6 +209,34 @@ def _draw_both(city, scale, labels, tiles):
             mod.finish_tile(st)
         out.append(tuple(pair))
     return out, stats
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32], ids=["exact", "fast"])
+def test_build_batch_equal(city, dtype):
+    """`stream_tile` then `build_batch` over every z15 tile, each side with
+    its own tables and the chunk doubled to hold the largest fill, as the
+    dense BatchRenderer does: equal arrays, dtypes and shapes."""
+    jstyler, pstyler = city["stylers"]
+    ents = _entities(city, None)
+    sides = []
+    for mod, styler, tiles in ((JP, jstyler, [(je, jt) for je, _, jt, _ in ents]),
+                               (P, pstyler, [(pe, t) for _, pe, _, t in ents])):
+        profiles, patterns = mod.ProfileTable(), mod.PatternTable(None, 256)
+        prims = [mod.assemble_tile_prims(e, t, 1.0, styler) for e, t in tiles]
+        chunk = 64
+        while chunk < max((p.edges.shape[0] for ps in prims for p in ps
+                           if isinstance(p, mod.FillPrim)), default=0):
+            chunk *= 2
+        streams = [mod.stream_tile(ps, profiles, chunk, patterns) for ps in prims]
+        sides.append((mod.build_batch(streams, profiles, chunk, dtype=dtype,
+                                      patterns=patterns, ts=256), profiles.has_round_caps()))
+    (want, want_chain), (got, got_chain) = sides
+    assert got_chain == want_chain
+    assert type(got).__name__ == type(want).__name__ == "TileBatch"
+    assert got._fields == want._fields
+    for name, a, b in zip(want._fields, want, got):
+        assert a.dtype == b.dtype and a.shape == b.shape and np.array_equal(a, b), name
+    assert got.geom.shape[0] == len(city["tiles"]) and (got.chunk_kind > 0).sum() > 10000
 
 
 # Every third z15 tile (the drawer is the slow part of this file).

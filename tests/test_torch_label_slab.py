@@ -25,6 +25,12 @@ from osm_renderer_tpu_torch.parallel import label_slab as LS
 from tests.test_torch_helpers import STYLESHEET_DIR, port_mini_reader, port_styler
 
 
+def _cpu(mod):
+    """The port's slab takes its device explicitly (it defaults to the
+    card); the JAX one uses jax's default device."""
+    return {"device": "cpu"} if mod is LS else {}
+
+
 def _random_compact(rng, ts: int):
     """A compact label layer with exact 0 and 1 alphas mixed in."""
     y0, x0 = rng.integers(0, ts - 16, 2)
@@ -53,7 +59,7 @@ def test_slab_script_matches_jax_slab():
     ts = 32
     rng = np.random.default_rng(5)
     compacts = {i: _random_compact(rng, ts) for i in range(14)}
-    port = LS.LabelSlab(ts, min_cap=8, max_tiles=6)
+    port = LS.LabelSlab(ts, min_cap=8, max_tiles=6, device="cpu")
     ref = JLS.LabelSlab(ts, min_cap=8, max_tiles=6)
     script = [
         ("insert", (0, 1)),          # grows from 0 rows
@@ -90,7 +96,7 @@ def test_slab_exhaustion_raises_like_jax():
     tall = (0, 7, 0, ts, np.zeros((7, ts, 3)), np.ones((7, ts, 1)))
     errors = []
     for mod in (LS, JLS):
-        slab = mod.LabelSlab(ts, min_cap=8)
+        slab = mod.LabelSlab(ts, min_cap=8, **_cpu(mod))
         slab.MAX_CAP = 8
         slab.insert([(("a",), tall)])
         with pytest.raises(MemoryError) as pinned:
@@ -143,7 +149,7 @@ def test_expand_ltriples_equals_lrow(package):
     mod = LS if package == "port" else JLS
     ts, T = 64, 7
     rng = np.random.default_rng(13)
-    slab = mod.LabelSlab(ts, min_cap=8)
+    slab = mod.LabelSlab(ts, min_cap=8, **_cpu(mod))
     keys = [("t", i) for i in range(5)]
     slab.insert([(k, _random_compact(rng, ts)) for k in keys])
     slab.free(keys[1])

@@ -225,7 +225,7 @@ def test_port_service_failures_surface(mini_bin, styler, monkeypatch):
     with pytest.raises(ValueError):
         TileService(mini_bin, styler, STYLESHEET_DIR, device="cpu", gpus=2)
     with pytest.raises(ValueError):
-        TileService(mini_bin, styler, STYLESHEET_DIR, device="cpu", precision="exact")
+        TileService(mini_bin, styler, STYLESHEET_DIR, device="cpu", precision="double")
     port = TileService(mini_bin, styler, STYLESHEET_DIR, device="cpu")
     assert port.warmup() == 1  # the mini fixture spans one z15 tile
 
@@ -236,6 +236,52 @@ def test_port_service_failures_surface(mini_bin, styler, monkeypatch):
     fresh = TileService(mini_bin, styler, STYLESHEET_DIR, device="cpu")
     with pytest.raises(RuntimeError, match="render failed"):
         fresh.warmup()
+
+
+def test_port_exact_service_matches_oracle(mini_bin, styler):
+    """precision = "exact" serves through the dense renderer (no chunk
+    cache, no arena, a raw readback), within 1/255 of the C++ oracle at
+    @1x and @2x; an unknown precision raises."""
+    from osm_renderer_tpu_torch.draw.drawer import CpuDrawer
+
+    port = TileService(mini_bin, styler, STYLESHEET_DIR, device="cpu", precision="exact",
+                       enable_labels=False, png_cache_tiles=0)
+    r = port.batch_renderer
+    assert r.backend == "dense" and r.precision == "exact" and r.chunk_arena is None
+    reqs = [(t, 1) for t in _zoom_tiles()[1:5]] + [(_zoom_tiles()[5], 2)]
+    pngs = port.render_tiles_device(reqs)
+    assert r.batch_counts["dense"] == 2 and r.batch_counts["arena"] == 0, r.batch_counts
+    drawer = CpuDrawer(stylesheet_dir=STYLESHEET_DIR)
+    for (t, s), png in zip(reqs, pngs):
+        want = drawer.draw_to_pixels(port.reader.get_entities_in_tile_with_neighbors(t), t, s,
+                                     styler)
+        got = _rgb(png)
+        assert got.shape == (256 * s, 256 * s, 3)
+        assert np.abs(got.astype(int) - want.astype(int)).max() <= 1, (t, s)
+    with pytest.raises(ValueError, match="precision"):
+        TileService(mini_bin, styler, STYLESHEET_DIR, device="cpu", precision="f64")
+
+
+def test_exact_entry_points_default_to_the_card(mini_bin, styler):
+    """The exact service, the dense BatchRenderer and the DeviceDrawer run
+    on CUDA unless the caller names the CPU: without a usable card their
+    defaults raise instead of falling back."""
+    import torch
+
+    from osm_renderer_tpu_torch.draw.drawer import DeviceDrawer
+    from osm_renderer_tpu_torch.parallel.renderer import BatchRenderer
+
+    if torch.cuda.is_available():
+        pytest.skip("this host has a usable CUDA device")
+    with pytest.raises(RuntimeError):
+        TileService(mini_bin, styler, STYLESHEET_DIR, precision="exact")
+    with pytest.raises(RuntimeError):
+        BatchRenderer(styler, backend="dense", precision="exact")
+    with pytest.raises(RuntimeError):
+        DeviceDrawer()
+    assert DeviceDrawer(device="cpu").device == torch.device("cpu")
+    with pytest.raises(ValueError):
+        BatchRenderer(styler, backend="jnp", device="cpu")
 
 
 def test_extract_tile_from_path():
@@ -336,6 +382,53 @@ def test_port_cli_serves_and_reports_launches(mini_bin, tmp_path):
     batches = next(line for line in text.splitlines() if line.startswith("batches while"))
     counts = dict(kv.split("=") for kv in batches.split(":", 1)[1].split())
     assert int(counts["arena"]) >= 1 and int(counts["labeled_tiles"]) >= 1, batches
+
+
+def test_port_cli_serves_exact(mini_bin, tmp_path):
+    """`precision = exact` through the port's CLI with device = cpu and
+    labels = yes: it serves dense batches, launches no kernel and reads
+    back no wire."""
+    import subprocess
+    import sys
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    conf = tmp_path / "server.conf"
+    conf.write_text(
+        f"[http]\naddress = 127.0.0.1:{port}\n[geodata]\nfile = {mini_bin}\n"
+        f"[style]\nfile = {os.path.join(STYLESHEET_DIR, 'default.mapcss')}\ntype = josm\n"
+        "[render]\nbackend = device\ndevice = cpu\nprecision = exact\nlabels = yes\n"
+        "warmup = no\n"
+    )
+    log = tmp_path / "server.log"
+    with open(log, "w") as f:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "osm_renderer_tpu_torch.cli.renderer_main", str(conf)],
+            cwd=REPO_ROOT, stdout=f, stderr=subprocess.STDOUT,
+        )
+    try:
+        deadline = time.time() + 120
+        while "Serving tiles" not in log.read_text():
+            assert proc.poll() is None, log.read_text()
+            assert time.time() < deadline, log.read_text()
+            time.sleep(0.2)
+        url = f"http://127.0.0.1:{port}"
+        for t in _zoom_tiles()[3:5]:
+            with urllib.request.urlopen(f"{url}/{t.zoom}/{t.x}/{t.y}.png", timeout=120) as r:
+                assert _rgb(r.read()).shape == (256, 256, 3)
+        urllib.request.urlopen(f"{url}/shutdown", timeout=10).read()
+        assert proc.wait(timeout=60) == 0
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    text = log.read_text()
+    assert "render kernel launches while serving: 0" in text
+    batches = next(line for line in text.splitlines() if line.startswith("batches while"))
+    counts = dict(kv.split("=") for kv in batches.split(":", 1)[1].split())
+    assert int(counts["dense"]) >= 1 and int(counts["arena"]) == 0, batches
+    assert int(counts["v1"]) == int(counts["v2"]) == 0, batches
 
 
 def _wire_renderer(styler):
