@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
+"""Smoke run of the PyTorch/CUDA port on NVIDIA GPUs (one is enough).
 
     python3 chip_smoke.py
 
@@ -26,6 +26,12 @@ Phases (any failure exits non-zero; no phase is skipped):
    also renders through the arena entry (one packed upload; the kernel
    reads the device chunk arena's rows through the batch's row index);
    bar: byte-identical to the plain-upload entry, and its ms.
+3b. The render kernel's device ms by chunk kind on the bigcity z15
+   batch (osm_renderer_tpu_torch.tools.kdecomp_device: full, floor_only,
+   fills_only, spans_only, items_only, seg_only, layers_only; the other
+   kinds' chunks turned into padding; torch.profiler's kernel time, 8
+   calls).  Bars: `full` byte-identical to the unmodified batch, and
+   within 10 % of phase 3's device_ms for it.
 4. Wire kernels against their plain versions on the card, on every
    phase-3 planar batch and three synthetic ones (a uniform T=1 ts=1024
    batch, a T=2 ts=256 per-pixel checkerboard, a T=3 ts=768 batch of
@@ -74,9 +80,30 @@ Phases (any failure exits non-zero; no phase is skipped):
 6. Warm served path in this process (PNG cache off): per-tile spans of
    warm minicity z15 and bigcity z15 batches with labels off, and of
    minicity z15 with labels on.
+8. Serving on several renderers: one a GPU when the host has G >= 2,
+   else two on cuda:0 (the split, each renderer's own arena, slab,
+   palette and wires, and the gather).  (a) MeshTileRenderer
+   byte-identical to one BatchRenderer on the 30 minicity and 97
+   bigcity z15 tiles; (b) a multi-renderer TileService (labels on, PNG
+   cache off) serves 52 minicity tiles (z13-z17, @2x) byte-identical to
+   a one-renderer service, cold and warm; (c) more than one renderer
+   rendered, each used one holds arena rows and ran v1 batches until
+   its first wire was read back (two: the cold group streams in
+   sub-batches), then v2 batches, and the kernel launch counters, set to 0 just before,
+   equal the renderers' batches; (d) G >= 2: the CLI with gpus = G
+   passes phase 5's bars and spreads tiles over renderers; G = 1:
+   TileService(gpus=2) and the CLI with gpus = 2 fail with the
+   ValueError; (e) warm bigcity z15 x32 per-tile wall, device execute
+   and compose-and-encode shares, one renderer against several; (f) a
+   wire made on the last renderer's device (cuda:G-1), a sleep queued
+   there behind its kernels, its copy queued while the current device
+   is cuda:0: both of its events
+   still pending right after start_wire_copy, and the wire read back
+   after the wait equal to the batch's pixels (G >= 2 holds the
+   events' device; G = 1 only their stream order).
 7. None of jax, jaxlib, fontTools or the JAX package osm_renderer_tpu
    was loaded (the import guard refuses all four here and in the
-   server).
+   server).  Phase 7 runs last.
 
 The second-to-last line is the kernels JSON object (each kernel's "ms"
 is its device ms on the bigcity z15 batch: the render kernel's, the v1
@@ -426,9 +453,10 @@ def scene_batch(device, icon: bool):
     return PreparedBatch(b, c, 256, 1), render_arena, (241, 238, 232)
 
 
-def phase_kernel(device, styler, rows, kinds_seen, planars):
+def phase_kernel(device, styler, rows, kinds_seen, planars, kept):
     """Render kernel vs twin and arena entry vs plain entry; the kernel's
-    planar batches go to `planars` as (name, tensor on the card)."""
+    planar batches go to `planars` as (name, tensor on the card), and
+    the plain-upload batch of bigcity z15 to `kept` (for phase 3b)."""
     from osm_renderer_tpu_torch.geodata.reader import GeodataReader
     from osm_renderer_tpu_torch.ops import chunk_layout as CL
     from osm_renderer_tpu_torch.parallel.renderer import BatchRenderer
@@ -465,6 +493,8 @@ def phase_kernel(device, styler, rows, kinds_seen, planars):
                 compare_arena(f"{name}[{i}]", lambda: arena_r.render_prepared_planar(pa),
                               out, rows)
                 planars.append((f"{name}[{i}]", out))
+                if f"{name}[{i}]" == "bigcity_z15[0]":
+                    kept["bigcity_z15[0]"] = p
     for name, icon in (("oversize_layer_scene", False), ("icon_fill_scene", True)):
         prep, render_arena, cu8 = scene_batch(device, icon=icon)
         out = compare(name, prep, cu8, kinds_seen, rows)
@@ -980,37 +1010,52 @@ def fetch(url: str, timeout: float = 300.0):
         return resp.status, resp.read()
 
 
-def phase_server(styler, rows_out, device="cuda", precision="fast"):
+# The CLI under the import guard: `python -c LAUNCHER CONF`.
+LAUNCHER = _NO_JAX + (
+    "import runpy\nsys.argv = ['renderer_main', sys.argv[1]]\n"
+    "runpy.run_module('osm_renderer_tpu_torch.cli.renderer_main', run_name='__main__')\n"
+)
+
+
+def server_conf(name, device="cuda", precision="fast", gpus=1):
+    """An INI for the CLI on a free port, serving the minicity with
+    labels -> (path, port)."""
+    import socket
+
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    conf = os.path.join(OUT_DIR, f"{name}.conf")
+    with open(conf, "w") as f:
+        f.write(
+            f"[http]\naddress = 127.0.0.1:{port}\n[geodata]\nfile = {MINI_BIN}\n"
+            f"[style]\nfile = {os.path.join(STYLESHEET_DIR, 'default.mapcss')}\ntype = josm\n"
+            f"[render]\nbackend = device\ndevice = {device}\nprecision = {precision}\n"
+            f"gpus = {gpus}\nlabels = yes\npng-level = 1\nwarmup = yes\n"
+        )
+    return conf, port
+
+
+def phase_server(styler, rows_out, device="cuda", precision="fast", gpus=1):
     """renderer_main serving the minicity (labels = yes) under the import
     guard.  precision "fast": the kernels' path, >= 32 distinct tiles;
     "exact": the dense renderer, >= 16 distinct tiles, and no kernel or
-    wire may run."""
-    import socket
-
+    wire may run.  gpus > 1: every renderer listed at shutdown, and more
+    than one of them rendered tiles."""
     import numpy as np
     from PIL import Image
 
     from osm_renderer_tpu_torch.draw.drawer import CpuDrawer
     from osm_renderer_tpu_torch.geodata.reader import GeodataReader
 
-    os.makedirs(OUT_DIR, exist_ok=True)
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        port = s.getsockname()[1]
     exact = precision == "exact"
-    conf = os.path.join(OUT_DIR, f"server_{precision}.conf")
-    with open(conf, "w") as f:
-        f.write(
-            f"[http]\naddress = 127.0.0.1:{port}\n[geodata]\nfile = {MINI_BIN}\n"
-            f"[style]\nfile = {os.path.join(STYLESHEET_DIR, 'default.mapcss')}\ntype = josm\n"
-            f"[render]\nbackend = device\ndevice = {device}\nprecision = {precision}\n"
-            "labels = yes\npng-level = 1\nwarmup = yes\n"
-        )
-    log_path = os.path.join(OUT_DIR, "server.log" if not exact else "server_exact.log")
-    launcher = _NO_JAX + (
-        "import runpy\nsys.argv = ['renderer_main', sys.argv[1]]\n"
-        "runpy.run_module('osm_renderer_tpu_torch.cli.renderer_main', run_name='__main__')\n"
-    )
+    name = {"fast": "server", "exact": "server_exact"}[precision]
+    if gpus > 1:
+        name += f"_gpus{gpus}"
+    conf, port = server_conf(name, device, precision, gpus)
+    log_path = os.path.join(OUT_DIR, f"{name}.log")
+    launcher = LAUNCHER
     reader = GeodataReader.load(MINI_BIN)
     from osm_renderer_tpu_torch.core.tile import Tile
 
@@ -1069,11 +1114,18 @@ def phase_server(styler, rows_out, device="cuda", precision="fast"):
         for kernel in ("render", "emit", "expand"):
             if line.startswith(f"{kernel} kernel launches while serving:"):
                 launches[kernel] = int(line.rsplit(":", 1)[1])
-        for what in ("batches", "readback bytes"):
+        for what in ("batches", "readback bytes", "tiles by renderer"):
             if line.startswith(f"{what} while serving:"):
                 counts[what] = {k: int(v) for k, v in
-                                (kv.split("=") for kv in line.split(":", 1)[1].split())}
+                                (kv.rsplit("=", 1) for kv in line.split(":", 1)[1].split())}
     batches = counts.get("batches", {})
+    by_renderer = counts.get("tiles by renderer", {})
+    if len(by_renderer) != (1 if exact else gpus):
+        raise AssertionError(f"the server listed renderers {by_renderer}, want "
+                             f"{1 if exact else gpus}")
+    if gpus > 1 and sum(1 for v in by_renderer.values() if v) < 2:
+        raise AssertionError(f"gpus = {gpus}: fewer than two renderers rendered tiles "
+                             f"({by_renderer})")
     if exact:
         if len(launches) != 3 or any(launches.values()):
             raise AssertionError(f"the exact server launched kernels ({launches}):"
@@ -1130,15 +1182,38 @@ def phase_server(styler, rows_out, device="cuda", precision="fast"):
         f"{n_unlabeled} unlabeled tiles max |diff| vs oracle = {worst_unlabeled}; "
         f"{n_labeled} labeled tiles max |diff| vs oracle + host composite = {worst_labeled}")
     log(f"  kernel launches while serving: {launches}; batches: {batches}; "
-        f"readback bytes: wire {rb.get('wire')} for raw planar {rb.get('planar')}")
+        f"readback bytes: wire {rb.get('wire')} for raw planar {rb.get('planar')}; "
+        f"tiles by renderer: {by_renderer}")
     rows_out["launches"] = launches
+
+
+def warm_tile_ms(svc, n: int, reps: int = 5):
+    """Warm-up, then the first `n` z15 tiles twice (cold: assembly and
+    caps; then the caps settle), then `reps` timed passes with every
+    renderer's batch counts and the perf stats reset -> (wall ms a tile,
+    {span: ms a tile}, tiles a pass)."""
+    from osm_renderer_tpu_torch.core.tile import Tile
+    from osm_renderer_tpu_torch.perfstats import PerfStats
+
+    svc.warmup()
+    tiles = [(Tile(15, t.x, t.y), 1) for t in z_tiles(svc.reader, 15)[:n]]
+    svc.render_tiles_device(tiles)
+    svc.render_tiles_device(tiles)
+    svc.perf_stats = PerfStats()
+    for r in svc.batch_renderers:
+        r.batch_counts.update(dict.fromkeys(r.batch_counts, 0))
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        svc.render_tiles_device(tiles)
+    wall = (time.perf_counter() - t0) * 1e3 / (reps * len(tiles))
+    root = svc.perf_stats.by_zoom[15]
+    count = svc.perf_stats.tile_counts[15]
+    return wall, {k: 1e3 * v.total / count for k, v in root.children.items()}, len(tiles)
 
 
 def phase_inprocess(styler, device):
     """Warm served path in this process: the server's per-tile spans over
     warm batches (PNG cache off; labels off, and on for minicity)."""
-    from osm_renderer_tpu_torch.core.tile import Tile
-    from osm_renderer_tpu_torch.perfstats import PerfStats
     from osm_renderer_tpu_torch.server.http import TileService
 
     for city, path, n, labels in (("minicity", MINI_BIN, 30, False),
@@ -1146,28 +1221,207 @@ def phase_inprocess(styler, device):
                                   ("minicity", MINI_BIN, 30, True)):
         svc = TileService(path, styler, STYLESHEET_DIR, enable_labels=labels, png_cache_tiles=0,
                           device=str(device))
-        svc.warmup()
-        reader = svc.reader
-        tiles = [(Tile(15, t.x, t.y), 1) for t in z_tiles(reader, 15)[:n]]
-        svc.render_tiles_device(tiles)          # cold: assembly and caps
-        svc.render_tiles_device(tiles)          # the caps settle
-        svc.perf_stats = PerfStats()
+        wall, spans, n = warm_tile_ms(svc, n)
         counts = svc.batch_renderer.batch_counts
-        counts.update(dict.fromkeys(counts, 0))
-        reps = 5
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            svc.render_tiles_device(tiles)
-        wall = (time.perf_counter() - t0) * 1e3 / (reps * len(tiles))
-        root = svc.perf_stats.by_zoom[15]
-        count = svc.perf_stats.tile_counts[15]
-        spans = {k: 1e3 * v.total / count for k, v in root.children.items()}
         if labels and not counts["labeled_tiles"]:
             raise AssertionError(f"{city}: warm labeled batches labeled no tile on the device")
-        log(f"  {city} z15 x{len(tiles)} warm, labels {'on' if labels else 'off'}: "
+        log(f"  {city} z15 x{n} warm, labels {'on' if labels else 'off'}: "
             f"{wall:.3f} ms/tile wall; per tile "
             + ", ".join(f"{k} {v:.3f} ms" for k, v in spans.items())
             + f"; batches {counts}")
+
+
+def phase_decomp(prepared, row, smi):
+    """The render kernel's device time by chunk kind on the bigcity z15
+    batch (osm_renderer_tpu_torch.tools.kdecomp_device, torch.profiler):
+    `full` byte-identical to the unmodified batch (the tool checks it)
+    and within 10 % of phase 3's device_ms for the same batch."""
+    from osm_renderer_tpu_torch.tools import kdecomp_device
+
+    rows = kdecomp_device.decompose(prepared, reps=8)
+    T = prepared.batch.tile_range.shape[0]
+    for r in rows:
+        log(f"  {r['name']:>12}: {r['ms']:.4f} ms device ({T / r['ms'] * 1e3:.0f} t/s), "
+            f"{r['launches']} launches in 8 calls, live chunks by kind {r['chunks']}")
+    full = rows[0]["ms"]
+    off = abs(full - row["kernel_dev_ms"]) / row["kernel_dev_ms"]
+    log(f"  full {full:.4f} ms (profiler) vs phase 3's device_ms {row['kernel_dev_ms']:.4f}: "
+        f"{100 * off:.1f} % apart; byte-identical to the unmodified batch ({smi})")
+    if off > 0.10:
+        raise AssertionError(f"full variant {full:.4f} ms is {100 * off:.1f} % off phase 3's "
+                             f"device_ms {row['kernel_dev_ms']:.4f}")
+
+
+def phase_multi(styler, smi, device):
+    """Several renderers, one a GPU (G = torch.cuda.device_count() >= 2),
+    or two renderers on `device` (cuda:0) when G = 1.  (a) MeshTileRenderer equals
+    one BatchRenderer on minicity and bigcity z15; (b) a multi-renderer
+    TileService (labels on, PNG cache off) serves minicity z15, z13-z17
+    and @2x tiles byte-identical to a one-renderer service, cold and warm;
+    (c) more than one renderer rendered, each one used holds arena rows
+    and ran v1 batches until its first wire was read back (its first two
+    batches: the group streams; one more for each raw fallback) and then
+    v2 batches, and the launch counters, set to 0 just before, equal the
+    renderers' batches; (d) G >= 2: the CLI serves with gpus = G and
+    phase 5's bars; G = 1: TileService(gpus=2) and the CLI with gpus = 2
+    fail with the ValueError; (e) warm per-tile wall and spans on bigcity
+    z15, one renderer against several; (f) start_wire_copy records on
+    the wire's device, whatever the current device is."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from osm_renderer_tpu_torch.geodata.reader import GeodataReader
+    from osm_renderer_tpu_torch.ops import render_cuda, rle_cuda
+    from osm_renderer_tpu_torch.parallel.renderer import (
+        BatchRenderer,
+        MeshTileRenderer,
+        start_wire_copy,
+        wait_executed,
+    )
+    from osm_renderer_tpu_torch.server.http import TileService
+
+    G = torch.cuda.device_count() if device.type == "cuda" else 1
+    if G >= 2:
+        devices = [torch.device("cuda", i) for i in range(G)]
+        log(f"  case: {G} GPUs, one renderer on each")
+    else:
+        devices = [device] * 2
+        log(f"  case: 1 GPU, two renderers on {device} (the split, each renderer's own arena, "
+            "slab, palette and wires, and the gather)")
+
+    for city, path in (("minicity", MINI_BIN), ("bigcity", BIG_BIN)):
+        reader = GeodataReader.load(path)
+        te = [(reader.get_entities_in_tile_with_neighbors(t), t) for t in z_tiles(reader, 15)]
+        want = BatchRenderer(styler, stylesheet_dir=STYLESHEET_DIR, device=devices[0]).render(te)
+        got = MeshTileRenderer(styler, devices=devices, stylesheet_dir=STYLESHEET_DIR).render(te)
+        if got.shape != want.shape or not np.array_equal(got, want):
+            raise AssertionError(f"(a) {city}: MeshTileRenderer differs from one BatchRenderer")
+        log(f"  (a) {city} z15 x{len(te)}: MeshTileRenderer over {len(devices)} renderers "
+            "byte-identical to one BatchRenderer")
+
+    def service(path, labels, several):
+        kw = dict(enable_labels=labels, png_cache_tiles=0, device=str(device))
+        if not several:
+            return TileService(path, styler, STYLESHEET_DIR, **kw)
+        if G >= 2:
+            return TileService(path, styler, STYLESHEET_DIR, gpus=G, **kw)
+        svc = TileService(path, styler, STYLESHEET_DIR, **kw)
+        svc.batch_renderers = [svc.batch_renderer, svc.fast_renderer(devices[1])]
+        return svc
+
+    one, multi = service(MINI_BIN, True, False), service(MINI_BIN, True, True)
+    z15 = z_tiles(multi.reader, 15)
+    reqs = [(t, 1) for t in z15] + [(t, 2) for t in z15[:6]]
+    for z in (13, 14, 16, 17):
+        reqs += [(t, 1) for t in z_tiles(multi.reader, z)[:4]]
+    render_cuda.RENDER_KERNEL_LAUNCHES = 0
+    rle_cuda.EMIT_KERNEL_LAUNCHES = 0
+    rle_cuda.EXPAND_KERNEL_LAUNCHES = 0
+    got = [multi.render_tiles_device(reqs) for _ in range(2)]
+    launched = (render_cuda.RENDER_KERNEL_LAUNCHES, rle_cuda.EMIT_KERNEL_LAUNCHES,
+                rle_cuda.EXPAND_KERNEL_LAUNCHES)
+    want = [one.render_tiles_device(reqs) for _ in range(2)]
+    # PNG colour type (IHDR byte 25): a host with the native encoder
+    # ships PNG-8 from v2 wires, and each renderer's first batch takes
+    # the v1 wire, so one renderer and several take v1 and v2 wires at
+    # other tiles.  Such pairs must decode to the same pixels; all others
+    # must be equal.
+    def pixels(png):
+        return np.asarray(Image.open(io.BytesIO(png)).convert("RGB"))
+
+    recoded = 0
+    for when, g, w in zip(("cold", "warm"), got, want):
+        bad = []
+        for (t, s), a, b in zip(reqs, g, w):
+            if a == b:
+                continue
+            if a[25] != b[25] and np.array_equal(pixels(a), pixels(b)):
+                recoded += 1
+                continue
+            bad.append(f"{t}@{s}x")
+        if bad:
+            raise AssertionError(f"(b) {when}: {len(bad)} PNGs differ from one renderer's: "
+                                 f"{bad[:4]}")
+    log(f"  (b) {len(reqs)} minicity tiles (z13-z17, {sum(s == 2 for _, s in reqs)} @2x), "
+        f"labels on: PNGs byte-identical to one renderer's, cold and warm ({recoded} of "
+        f"{2 * len(reqs)} in another PNG type, their pixels identical)")
+
+    used = [d for d in range(len(multi.batch_renderers)) if multi.tiles_by_renderer[d]]
+    if len(used) < 2:
+        raise AssertionError(f"(c) only renderers {used} rendered tiles")
+    per = {}
+    for d in used:
+        r = multi.batch_renderers[d]
+        c = r.batch_counts
+        if r.chunk_arena is None or not r.chunk_arena._offsets:
+            raise AssertionError(f"(c) renderer {d} holds no arena rows")
+        # The cold group streams in sub-batches, and each renderer's
+        # second batch is dispatched before its first wire (which teaches
+        # it the palette) is read back: v1 twice, then v2.
+        if not (1 <= c["v1"] <= 2 + c["raw"]) or not c["v2"]:
+            raise AssertionError(f"(c) renderer {d} did not run its first two batches on v1, "
+                                 f"then v2: {c}")
+        per[d] = dict(c, tiles=multi.tiles_by_renderer[d], arena_rows=len(r.chunk_arena._offsets))
+    total = {k: sum(multi.batch_renderers[d].batch_counts[k] for d in used)
+             for k in ("arena", "plain", "v1", "v2")}
+    want_launches = (total["arena"] + total["plain"], total["v1"] + total["v2"], total["v2"])
+    if launched != want_launches or not all(launched):
+        raise AssertionError(f"(c) launches {launched} (render, emit, expand), want the "
+                             f"renderers' batches {want_launches}")
+    log(f"  (c) renderers used {used} of {len(multi.batch_renderers)}: {per}; launches "
+        f"(render, emit, expand) {launched} = the renderers' batches")
+
+    r = multi.batch_renderers[-1]
+    te = [(multi.reader.get_entities_in_tile_with_neighbors(t), t) for t in z15[:8]]
+    rendered = r.render_prepared_rle(r.prepare(te, 1))
+    # ~0.1 s on the wire's device's stream, queued behind its kernels (not
+    # before them: the launch's pageable upload would wait it out).
+    with torch.cuda.device(r.device):
+        torch.cuda._sleep(200_000_000)
+    with torch.cuda.device(devices[0]):
+        res = start_wire_copy(rendered)
+        pending = (not res.executed.query(), not res.copied.query())
+    wait_executed(res)
+    view = r.fetch_tile_view(res)
+    planar = res.planar[:len(te), :3].permute(0, 2, 3, 1).cpu().numpy()
+    same = all(np.array_equal(view.rgb(i), planar[i]) for i in range(len(te)))
+    if pending != (True, True) or not same:
+        raise AssertionError(f"(f) wire on {r.device}, current device {devices[0]}: events "
+                             f"pending {pending}, read-back wire equal to the pixels: {same}")
+    log(f"  (f) {res.fmt} wire of {len(te)} tiles on {r.device}, copy queued with the current "
+        f"device {devices[0]}: both events pending behind the sleep, the read-back wire equal "
+        "to the batch's pixels")
+
+    if G >= 2:
+        phase_server(styler, {}, gpus=G)
+    else:
+        try:
+            TileService(MINI_BIN, styler, STYLESHEET_DIR, device=str(device), gpus=2)
+        except ValueError as e:
+            log(f"  (d) TileService(gpus=2) refused: ValueError: {e}")
+        else:
+            raise AssertionError("(d) TileService(gpus=2) served on one GPU")
+        conf, _ = server_conf("server_gpus2", device=str(device), gpus=2)
+        proc = subprocess.run([sys.executable, "-c", LAUNCHER, conf], cwd=ROOT,
+                              capture_output=True, text=True, timeout=300)
+        if (proc.returncode == 0 or "ValueError: gpus = 2" not in proc.stderr
+                or "Serving tiles" in proc.stdout):
+            raise AssertionError(f"(d) the CLI with gpus = 2 did not fail with the ValueError "
+                                 f"(exit {proc.returncode}):\n{proc.stdout[-2000:]}"
+                                 f"{proc.stderr[-2000:]}")
+        log(f"  (d) the CLI with gpus = 2 exited {proc.returncode}: "
+            f"{proc.stderr.strip().splitlines()[-1]}")
+
+    for several in (False, True):
+        svc = service(BIG_BIN, False, several)
+        wall, spans, n = warm_tile_ms(svc, 32)
+        ex = spans.get("Device execute (batch share)", 0.0)
+        ce = spans.get("Compose and encode", 0.0)
+        log(f"  (e) bigcity z15 x{n} warm, labels off, {len(svc.batch_renderers)} "
+            f"renderer(s): {wall:.3f} ms/tile wall; device execute {ex:.3f} ms "
+            f"({100 * ex / wall:.1f} %), compose and encode {ce:.3f} ms ({100 * ce / wall:.1f} %); "
+            "per tile " + ", ".join(f"{k} {v:.3f} ms" for k, v in spans.items()) + f" ({smi})")
 
 
 def main() -> int:
@@ -1227,7 +1481,13 @@ def main() -> int:
     rows: list = []
     kinds_seen: set = set()
     planars: list = []
-    phase_kernel(device, styler, rows, kinds_seen, planars)
+    kept: dict = {}
+    phase_kernel(device, styler, rows, kinds_seen, planars, kept)
+
+    log("phase 3b: the render kernel's device ms by chunk kind on bigcity z15 "
+        "(tools/kdecomp_device; bars: full byte-identical, within 10 % of phase 3)")
+    phase_decomp(kept.pop("bigcity_z15[0]"),
+                 next(r for r in rows if r["name"] == "bigcity_z15[0]"), smi)
 
     log("phase 4: wire kernels vs their plain versions on every phase-3 batch and three "
         "synthetic ones (bar: bit-identical wires; overflow flagged)")
@@ -1265,6 +1525,14 @@ def main() -> int:
 
     log("phase 6: warm served path in process (PNG cache off; labels off, then on)")
     phase_inprocess(styler, device)
+
+    log("phase 8: serving on several renderers (bars: (a) MeshTileRenderer byte-identical "
+        "to one renderer, (b) served PNGs byte-identical to one renderer's, (c) the split "
+        "used several renderers and every launch is a renderer's batch, (d) the CLI's gpus, "
+        "(f) the wire's events on its device)")
+    t0 = time.perf_counter()
+    phase_multi(styler, smi, device)
+    log(f"  phase 8 took {time.perf_counter() - t0:.1f} s ({smi})")
 
     log("phase 7: no jax, no fontTools, no osm_renderer_tpu")
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in REFUSED)

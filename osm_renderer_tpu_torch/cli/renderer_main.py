@@ -13,8 +13,9 @@ Same INI surface as `osm_renderer_tpu.cli.renderer_main`:
 
     [render]
     backend = device       ; the default; or cpu (the C++ oracle, no GPU)
-    device = cuda          ; CUDA device for backend = device (cuda, cuda:N)
-    gpus = 1               ; one GPU only for now
+    device = cuda          ; first CUDA device for backend = device (cuda, cuda:N)
+    gpus = 1               ; serve on this many GPUs from `device` on, one
+                           ; renderer each (precision = exact: the first only)
     precision = fast       ; fast, or exact (the dense f64 renderer)
     png-level = 1
     labels = yes
@@ -23,12 +24,15 @@ Same INI surface as `osm_renderer_tpu.cli.renderer_main`:
 
 An INI without a `backend` line serves from the card (`device`
 defaults to `cuda`); `backend = cpu` is the way to ask for the oracle.
-With backend = device, the server prints, when it shuts down, the
+`gpus` above the CUDA devices visible from `device` on, or below 1, is
+refused: the server never serves on fewer devices than it was asked
+for.  With backend = device, the server prints, when it shuts down, the
 launches of each kernel made while serving (render, run emit, palette
-expand) and the batches it served by path: arena or plain upload or
-dense (`precision = exact`), and v1 wire, v2 wire or raw planar
-readback, beside the tiles whose labels were blended on the device
-(`labeled_tiles`).  Both backends run the
+expand) and, summed over its renderers, the batches it served by path:
+arena or plain upload or dense (`precision = exact`), and v1 wire, v2
+wire or raw planar readback, beside the tiles whose labels were blended
+on the device (`labeled_tiles`), then the tiles each renderer rendered
+(`tiles by renderer while serving: 0@cuda:0=N ...`).  Both backends run the
 port's own server and labeler and need neither jax nor fontTools.
 """
 
@@ -38,6 +42,7 @@ import asyncio
 import configparser
 import os
 import sys
+from collections import Counter
 
 
 def _require(config: configparser.ConfigParser, section: str, name: str) -> str:
@@ -86,6 +91,9 @@ def service_from_config(config: configparser.ConfigParser, osm_ids=None):
             precision=precision, png_level=png_level, png_cache_tiles=png_cache,
             device=device, gpus=gpus,
         )
+        if precision == "exact" and gpus > 1:
+            print(f"precision = exact serves on the first device only ({service.device}), "
+                  f"not on gpus = {gpus}", flush=True)
     else:
         # The C++ oracle on the CPU, one tile a request (needs no GPU).
         service = TileService(
@@ -112,6 +120,9 @@ def main(argv=None) -> int:
         service, backend = service_from_config(config, osm_ids)
     except SystemExit as e:
         return int(e.code)
+    except ValueError as e:  # a setting the service refuses, such as gpus
+        print(f"ValueError: {e}", file=sys.stderr)
+        return 1
 
     from osm_renderer_tpu_torch.ops import render_cuda, rle_cuda
     from osm_renderer_tpu_torch.server.http import run_server
@@ -123,18 +134,29 @@ def main(argv=None) -> int:
         render_cuda.RENDER_KERNEL_LAUNCHES = 0
         rle_cuda.EMIT_KERNEL_LAUNCHES = 0
         rle_cuda.EXPAND_KERNEL_LAUNCHES = 0
-        for counts in (service.batch_renderer.batch_counts,
-                       service.batch_renderer.readback_bytes):
-            counts.update(dict.fromkeys(counts, 0))
-    print(f"Serving tiles on http://{address} (backend={backend})", flush=True)
+        for r in service.batch_renderers:
+            for counts in (r.batch_counts, r.readback_bytes):
+                counts.update(dict.fromkeys(counts, 0))
+        service.tiles_by_renderer.clear()
+        devices = ", ".join(str(r.device) for r in service.batch_renderers)
+        print(f"Serving tiles on http://{address} (backend={backend}, "
+              f"{len(service.batch_renderers)} renderer(s) on {devices})", flush=True)
+    else:
+        print(f"Serving tiles on http://{address} (backend={backend})", flush=True)
     asyncio.run(run_server(address, service))
     if backend == "device":
         print(f"render kernel launches while serving: {render_cuda.RENDER_KERNEL_LAUNCHES}")
         print(f"emit kernel launches while serving: {rle_cuda.EMIT_KERNEL_LAUNCHES}")
         print(f"expand kernel launches while serving: {rle_cuda.EXPAND_KERNEL_LAUNCHES}")
-        for what, counts in (("batches", service.batch_renderer.batch_counts),
-                             ("readback bytes", service.batch_renderer.readback_bytes)):
-            print(f"{what} while serving: " + " ".join(f"{k}={v}" for k, v in counts.items()))
+        for label, what in (("batches", "batch_counts"), ("readback bytes", "readback_bytes")):
+            total = Counter()
+            for r in service.batch_renderers:
+                total.update(getattr(r, what))
+            keys = getattr(service.batch_renderer, what)  # every key, in its order
+            print(f"{label} while serving: " + " ".join(f"{k}={total[k]}" for k in keys))
+        print("tiles by renderer while serving: " + " ".join(
+            f"{i}@{r.device}={service.tiles_by_renderer[i]}"
+            for i, r in enumerate(service.batch_renderers)))
         sys.stdout.flush()
     return 0
 

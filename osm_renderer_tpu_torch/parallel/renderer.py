@@ -1,8 +1,9 @@
-"""Batched device rendering on one CUDA device.
+"""Batched device rendering: one renderer a CUDA device.
 
-Counterpart of `osm_renderer_tpu.parallel.renderer.BatchRenderer` on one
-device.  `backend="dense"` is the reference's "jnp" backend: each batch
-streams its tiles' primitives (`draw.primitives.stream_tile`), stacks
+Counterpart of `osm_renderer_tpu.parallel.renderer.BatchRenderer` and
+`MeshTileRenderer` (one `BatchRenderer` a device, the tiles split
+round-robin).  `backend="dense"` is the reference's "jnp" backend: each
+batch streams its tiles' primitives (`draw.primitives.stream_tile`), stacks
 them with `build_batch` and renders them with `ops.render_dense` in the
 batch's `precision` ("exact": int64/f64, the only way to draw geometry
 past the fast path's coordinate bound; "fast": int32/f32), and the
@@ -88,15 +89,21 @@ class RleRendered(NamedTuple):
 def start_wire_copy(res: RleRendered) -> RleRendered:
     """Queue the wire's device-to-host copy into pinned host memory
     behind the kernels, without waiting (the counterpart of
-    `copy_to_host_async`).  A CPU wire is already on the host."""
+    `copy_to_host_async`).  Both events are recorded on the current
+    stream of the wire's own device, the stream its kernels ran on, not
+    on the calling thread's current device.  A CPU wire is already on
+    the host."""
     if not res.wire.is_cuda:
         return res
-    executed = torch.cuda.Event()
-    executed.record()
-    host = torch.empty(res.wire.shape, dtype=res.wire.dtype, pin_memory=True)
-    host.copy_(res.wire, non_blocking=True)
-    copied = torch.cuda.Event()
-    copied.record()
+    dev = res.wire.device
+    stream = torch.cuda.current_stream(dev)
+    with torch.cuda.device(dev):
+        executed = torch.cuda.Event()
+        executed.record(stream)
+        host = torch.empty(res.wire.shape, dtype=res.wire.dtype, pin_memory=True)
+        host.copy_(res.wire, non_blocking=True)
+        copied = torch.cuda.Event()
+        copied.record(stream)
     return res._replace(host=host, executed=executed, copied=copied)
 
 
@@ -683,3 +690,40 @@ def pad_batch_to(tiles: int, prepared: PreparedBatch) -> PreparedBatch:
         tile_range=torch.cat([b.tile_range, torch.from_numpy(ranges).to(dev)]),
     )
     return prepared._replace(batch=new, chunk=tiles)
+
+
+class MeshTileRenderer:
+    """Tile data parallelism over several devices: one `BatchRenderer` a
+    device (the full one-device program each, its own caches and arena
+    when asked for), the batch split round-robin and gathered on the
+    host.  Counterpart of `osm_renderer_tpu.parallel.renderer.
+    MeshTileRenderer`.
+
+    `devices=None` is every visible CUDA device and raises when there is
+    none.  A list may name a device more than once: each entry gets a
+    renderer of its own."""
+
+    def __init__(self, styler: Styler, devices=None, **kwargs):
+        if devices is None:
+            n = torch.cuda.device_count() if torch.cuda.is_available() else 0
+            if n == 0:
+                raise RuntimeError("MeshTileRenderer: no CUDA device is visible")
+            devices = [torch.device("cuda", i) for i in range(n)]
+        if not devices:
+            raise ValueError("MeshTileRenderer needs at least one device")
+        self.renderers = [BatchRenderer(styler, device=d, **kwargs) for d in devices]
+        self.devices = [r.device for r in self.renderers]
+
+    def render(self, tiles_entities: Sequence[Tuple[object, Tile]], scale: int = 1) -> np.ndarray:
+        """-> (T, ts, ts, 3) u8 in request order.  Every shard is launched
+        before any is read back, so the devices render together."""
+        n = len(self.renderers)
+        outs = [
+            (d, r.render_prepared(r.prepare(tiles_entities[d::n], scale)))
+            for d, r in enumerate(self.renderers) if tiles_entities[d::n]
+        ]
+        T, ts = len(tiles_entities), 256 * scale
+        result = np.empty((T, ts, ts, 3), dtype=np.uint8)
+        for d, out in outs:
+            result[d::n] = out[: len(range(d, T, n))].cpu().numpy()
+        return result

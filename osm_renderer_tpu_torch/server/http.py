@@ -1,4 +1,4 @@
-"""Slippy-tile HTTP server: one CUDA device, or the C++ oracle on the CPU.
+"""Slippy-tile HTTP server: CUDA devices, or the C++ oracle on the CPU.
 
 The port's server, with the URL contract and serving loop of
 `osm_renderer_tpu.server.http`.  `backend = "cpu"` renders each request
@@ -6,8 +6,14 @@ on its own thread with the C++ oracle (`CpuDrawer`), as the original's
 CPU backend does.  `backend = "device"`: an async micro-batcher groups concurrent
 tile requests, `render_tiles_device` folds them per scale into batches
 (cold-heavy groups stream in pipelined sub-batches; chunk-dense groups
-halve on MAX_BATCH_CHUNKS).  A batch renders from the chunk arena
-(unless `osm_ids` is set), is run-length encoded on the device and
+halve on MAX_BATCH_CHUNKS).  With `gpus = N` there is one renderer a
+device, each with its own arena, label slab, caches, palette and wire
+caps; a tile always goes to the same one (`_dev_idx`), and each
+(sub-)batch is split by renderer, launched on all of them, then read
+back through one view (`_ShardedTileView`).  Unlike the original, whose
+groups over several devices take one batch and go to the oracle on
+MAX_BATCH_CHUNKS, they stream and halve here as on one.  A batch renders from
+the chunk arena (unless `osm_ids` is set), is run-length encoded on the device and
 crosses to the host as one wire array.  On the arena path, labeled
 tiles have their committed label layers blended on the device (the
 renderer's label slab).  Unlabeled and device-labeled tiles ship as
@@ -19,10 +25,10 @@ upload batches under `osm_ids`) get their labels composited on the host.
 (`BatchRenderer(backend="dense", precision="exact")`, int64/f64) on the
 service's device, with no chunk cache, no arena and no icon patterns
 (tiles with icon fills go to the oracle); each batch is read back raw
-and its labeled tiles are composited on the host.
+and its labeled tiles are composited on the host.  It serves on the
+first device only, as the original does.
 
-Both backends label with the port's fontTools-free labeler; the device
-loop is the original's cut to one device.
+Both backends label with the port's fontTools-free labeler.
 """
 
 from __future__ import annotations
@@ -30,7 +36,7 @@ from __future__ import annotations
 import asyncio
 import threading
 import time
-from collections import OrderedDict
+from collections import Counter, OrderedDict
 from typing import Dict, List, Optional, Set, Tuple
 
 import torch
@@ -76,12 +82,48 @@ def extract_tile_from_path(path: str) -> Optional[Tuple[Tile, int]]:
     return Tile(z, x, y), scale
 
 
+def _serving_devices(first: torch.device, gpus: int) -> List[torch.device]:
+    """The `gpus` devices a service renders on: CUDA devices `first`,
+    `first + 1`, ...; on the CPU (tests only), the CPU `gpus` times.
+    Raises ValueError when fewer CUDA devices are visible from `first`
+    on, so a service never serves on fewer devices than it was asked
+    for."""
+    if first.type == "cpu":
+        return [first] * gpus
+    visible = torch.cuda.device_count()
+    if first.index + gpus > visible:
+        raise ValueError(
+            f"gpus = {gpus} from cuda:{first.index} on, but {visible - first.index} CUDA "
+            f"device(s) are visible from cuda:{first.index} on ({visible} in all)"
+        )
+    return [torch.device("cuda", first.index + i) for i in range(gpus)]
+
+
+class _ShardedTileView:
+    """Per-tile view over the per-renderer views of a batch split by
+    renderer: shard k holds the batch's tiles `shard_idxs[k]`, in order."""
+
+    def __init__(self, views, shard_idxs):
+        self._views = views
+        self._remap = {i: (k, j) for k, idxs in enumerate(shard_idxs)
+                       for j, i in enumerate(idxs)}
+
+    def rgb(self, i: int):
+        k, j = self._remap[i]
+        return self._views[k].rgb(j)
+
+    def png8(self, i: int, level: int):
+        k, j = self._remap[i]
+        return self._views[k].png8(j, level)
+
+
 class TileService:
-    """Tile service.  `backend="device"` renders on one CUDA device
-    (`device="cpu"` runs the kernels' plain versions; only the tests ask
-    for it): `precision="fast"` through the kernels, `"exact"` through
-    the dense renderer.  `backend="cpu"` renders each tile with the C++
-    oracle."""
+    """Tile service.  `backend="device"` renders on `gpus` CUDA devices
+    from `device` on, one renderer each (`device="cpu"` runs the
+    kernels' plain versions, `gpus` renderers on the CPU; only the tests
+    ask for it): `precision="fast"` through the kernels, `"exact"`
+    through the dense renderer on the first device.  `backend="cpu"`
+    renders each tile with the C++ oracle."""
 
     # Cold-heavy groups stream in sub-batches of this many tiles: host
     # assembly of sub-batch N+1 overlaps the device work of sub-batch N.
@@ -103,8 +145,8 @@ class TileService:
     ):
         if backend not in ("device", "cpu"):
             raise ValueError(f"unknown backend {backend!r} (use 'device' or 'cpu')")
-        if backend == "device" and gpus != 1:
-            raise ValueError(f"serving on {gpus} GPUs is not supported yet (one GPU only)")
+        if backend == "device" and gpus < 1:
+            raise ValueError(f"gpus = {gpus}: serving needs at least one GPU")
         if precision not in ("fast", "exact"):
             raise ValueError(f"unknown precision {precision!r} (use 'fast' or 'exact')")
         build_native_host_libs()
@@ -134,19 +176,32 @@ class TileService:
         self._local = threading.local()
         self._stylesheet_dir = stylesheet_dir
         self.batch_renderer = None
+        self.batch_renderers: List[BatchRenderer] = []
+        # Tiles handed to each renderer, by its index in batch_renderers.
+        self.tiles_by_renderer: Counter = Counter()
         if backend == "cpu":
             return
         self.device = resolve_device(device)
+        devices = _serving_devices(self.device, gpus)
         if precision == "exact":
+            # As the original: the dense renderer serves on the first
+            # device only.
             self.batch_renderer = BatchRenderer(
-                styler, backend="dense", precision="exact", device=self.device)
+                styler, backend="dense", precision="exact", device=devices[0])
+            self.batch_renderers = [self.batch_renderer]
             return
-        self.batch_renderer = BatchRenderer(
-            styler, stylesheet_dir=stylesheet_dir, tile_bucket=True,
-            chunk_cache_tiles=0 if osm_ids else 512, device=self.device,
-            # Device-resident chunk arena: warm batches assemble on the
-            # device from one packed upload.
-            arena=not osm_ids,
+        self.batch_renderers = [self.fast_renderer(d) for d in devices]
+        self.batch_renderer = self.batch_renderers[0]
+
+    def fast_renderer(self, device: torch.device) -> BatchRenderer:
+        """A serving renderer of the kernels' path on `device`, with its own
+        chunk cache, device-resident chunk arena (warm batches assemble on
+        the device from one packed upload), label slabs, palette and wire
+        caps."""
+        return BatchRenderer(
+            self.styler, stylesheet_dir=self._stylesheet_dir, tile_bucket=True,
+            chunk_cache_tiles=0 if self.osm_ids else 512, device=device,
+            arena=not self.osm_ids,
         )
 
     def warmup(self, n_tiles: int = 16) -> int:
@@ -204,48 +259,80 @@ class TileService:
             perfstats.finish_tile(self.perf_stats)
         return png
 
+    def _dev_idx(self, tile: Tile) -> int:
+        """Stable tile -> renderer map, the original's hash: a tile always
+        renders on the renderer whose chunk cache and arena hold it."""
+        n = len(self.batch_renderers)
+        if n <= 1:
+            return 0
+        return ((tile.x * 0x9E3779B1) ^ (tile.y * 0x85EBCA77) ^ tile.zoom) % n
+
     def _dispatch_group_device(self, tiles_entities, scale: int, t_prep0: float,
                                compacts=None):
-        """Prepare, launch the kernels and queue the wire's copy to the
-        host, without waiting for the device.  `compacts`: the tiles'
-        committed label layers, blended on the device on the arena path.
-        A dense batch is queued as its raw (T, ts, ts, 3) output."""
-        prepared = self.batch_renderer.prepare(tiles_entities, scale, label_layers=compacts)
+        """Split the batch by renderer (`_dev_idx`; one shard with one
+        renderer), prepare every shard, then launch every shard's kernels
+        and queue its wire's copy to the host, without waiting for the
+        devices, so they run together.  `compacts`: the tiles' committed
+        label layers, blended on the device on the arena path.  A dense
+        batch is queued as its raw (T, ts, ts, 3) output.  A shard's
+        ValueError (MAX_BATCH_CHUNKS) raises before anything launches."""
+        by_dev: Dict[int, List[int]] = {}
+        for i, (_, t) in enumerate(tiles_entities):
+            by_dev.setdefault(self._dev_idx(t), []).append(i)
+        needs_cpu: Set[int] = set()
+        device_labeled: Set[int] = set()
+        staged = []
+        for d, idxs in by_dev.items():
+            prepared = self.batch_renderers[d].prepare(
+                [tiles_entities[i] for i in idxs], scale,
+                label_layers=[compacts[i] for i in idxs] if compacts is not None else None)
+            needs_cpu.update(idxs[f] for f in prepared.cpu_fallback_tiles)
+            device_labeled.update(idxs[f] for f in prepared.device_labeled)
+            staged.append((d, idxs, prepared))
         prep_dt = time.perf_counter() - t_prep0
         t0 = time.perf_counter()
-        if prepared.precision != "cuda":
-            res = self.batch_renderer.render_prepared(prepared)
-        else:
-            res = start_wire_copy(self.batch_renderer.render_prepared_rle(prepared))
-        return (res, set(prepared.cpu_fallback_tiles), prep_dt, t0,
-                set(prepared.device_labeled))
+        shards = []
+        for d, idxs, prepared in staged:
+            r = self.batch_renderers[d]
+            if prepared.precision != "cuda":
+                res = r.render_prepared(prepared)
+            else:
+                res = start_wire_copy(r.render_prepared_rle(prepared))
+            self.tiles_by_renderer[d] += len(idxs)
+            shards.append((d, idxs, res))
+        return shards, needs_cpu, prep_dt, t0, device_labeled
 
     def _collect_group_device(self, pending):
-        """Wait for a dispatched batch and fetch its wire:
-        (view, needs_cpu, prep_dt, exec_dt, d2h_dt, device_labeled).
-        Execute (dispatch to kernels done) and readback (wire copy and
-        parse, or the raw planar fetch on overflow) are separate spans."""
-        res, needs_cpu, prep_dt, t0, device_labeled = pending
-        if isinstance(res, torch.Tensor):
-            # Dense batch: wait, then one device-to-host copy.
-            if res.is_cuda:
+        """Wait for every shard of a dispatched batch and fetch its wire:
+        (view, needs_cpu, prep_dt, exec_dt, d2h_dt, device_labeled), the
+        view a `_ShardedTileView` over several shards.  Execute (dispatch
+        to kernels done) and readback (wire copy and parse, or the raw
+        planar fetch on overflow) are separate spans."""
+        shards, needs_cpu, prep_dt, t0, device_labeled = pending
+        for _, _, res in shards:
+            if not isinstance(res, torch.Tensor):
+                wait_executed(res)
+            elif res.is_cuda:
                 torch.cuda.synchronize(res.device)
-            exec_dt = time.perf_counter() - t0
-            t1 = time.perf_counter()
-            rgb = res.cpu().numpy()
-            view = RleTileView(rgb.shape[0], rgb.shape[1], rgb=rgb)
-            d2h_dt = time.perf_counter() - t1
-            return view, needs_cpu, prep_dt, exec_dt, d2h_dt, device_labeled
-        wait_executed(res)
         exec_dt = time.perf_counter() - t0
         t1 = time.perf_counter()
-        view = self.batch_renderer.fetch_tile_view(res)
+        views = []
+        for d, _, res in shards:
+            if isinstance(res, torch.Tensor):
+                # Dense batch: one device-to-host copy.
+                rgb = res.cpu().numpy()
+                views.append(RleTileView(rgb.shape[0], rgb.shape[1], rgb=rgb))
+            else:
+                views.append(self.batch_renderers[d].fetch_tile_view(res))
         d2h_dt = time.perf_counter() - t1
+        view = views[0] if len(views) == 1 else _ShardedTileView(
+            views, [idxs for _, idxs, _ in shards])
         return view, needs_cpu, prep_dt, exec_dt, d2h_dt, device_labeled
 
     def render_tiles_device(self, requests: List[Tuple[Tile, int]]) -> List[bytes]:
-        """Batched device render; one dispatch per scale group (tiles the
-        batch cannot represent fall back to the C++ oracle)."""
+        """Batched device render; one dispatch per scale group, split by
+        renderer when there are several (tiles the batch cannot represent
+        fall back to the C++ oracle)."""
         out: Dict[int, bytes] = {}
         by_scale: Dict[int, List[Tuple[int, Tile]]] = {}
         for i, (tile, scale) in enumerate(requests):
@@ -255,10 +342,10 @@ class TileService:
             t0 = time.perf_counter()
             ts = 256 * scale
 
-            # Entity fetch is skipped when both the chunk cache and (with
-            # labels) the label-layer cache hit.
+            # Entity fetch is skipped when both the tile's renderer's chunk
+            # cache and (with labels) the label-layer cache hit.
             def _need_entities(t: Tile) -> bool:
-                if not self.batch_renderer.has_cached_chunks(t, scale):
+                if not self.batch_renderers[self._dev_idx(t)].has_cached_chunks(t, scale):
                     return True
                 return self.labeler is not None and not self.labeler.has_cached_layer(t, ts)
 

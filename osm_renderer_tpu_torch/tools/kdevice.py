@@ -1,0 +1,129 @@
+"""Device time of the port's kernels, read from a torch.profiler trace.
+
+Counterpart of `tools/kdevice.py`.  A loop of launches timed on the
+host folds the host's enqueue and synchronisation into every number;
+this runs a call `reps` times under `torch.profiler` and sums, per call,
+the device time of the named kernels only (`render_kernel` of
+`csrc/render.cu`, `wire_kernel` of `csrc/rle.cu`).  The command line
+times the z15 batch of a city through the arena entry, then the v2 wire
+behind it:
+
+    python -m osm_renderer_tpu_torch.tools.kdevice [--reps 8] [--zoom 15] \\
+        [--geodata assets/fixtures/bigcity.bin] [--device cuda]
+
+It runs on the card by default.  `--device cpu` (for the tests) runs the
+kernels' plain versions and reports their CPU operator time, which is
+not a device time.  The fixtures come from `python3 chip_smoke.py` or
+`tools/make_fixture.py` and the port's importer.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+from typing import Callable, Dict, Sequence
+
+import torch
+
+REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+STYLESHEET_DIR = os.path.join(REPO_ROOT, "assets", "stylesheets")
+KERNELS = ("render_kernel", "wire_kernel")
+
+
+def device_ms_per_call(fn: Callable[[], object], reps: int,
+                       kernel_names: Sequence[str] = KERNELS,
+                       device: torch.device = torch.device("cuda")) -> Dict[str, object]:
+    """fn() once to warm, then `reps` times under torch.profiler ->
+    {"ms": per call, "launches": launches seen, "by_kernel": {name: ms
+    per call}, "clock": "cuda"}: the summed device time of the kernels
+    whose names contain one of `kernel_names`.  Raises when the trace
+    holds none of them.
+
+    On the CPU (`device.type == "cpu"`) the call runs the plain versions,
+    once, unwarmed, and "ms" is their CPU operator time per call
+    ("clock": "cpu", no launches)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    if device.type == "cpu":
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            for _ in range(reps):
+                fn()
+        us = sum(e.self_cpu_time_total for e in prof.key_averages())
+        return {"ms": us / 1e3 / reps, "launches": 0, "by_kernel": {}, "clock": "cpu"}
+    fn()
+    torch.cuda.synchronize(device)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize(device)
+    by_kernel: Dict[str, float] = {}
+    launches = 0
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        name = next((k for k in kernel_names if k in e.name), None)
+        if name is not None:
+            by_kernel[name] = by_kernel.get(name, 0.0) + e.time_range.elapsed_us() / 1e3 / reps
+            launches += 1
+    if not launches:
+        raise RuntimeError(f"the profiler trace holds no launch of {list(kernel_names)}")
+    return {"ms": sum(by_kernel.values()), "launches": launches, "by_kernel": by_kernel,
+            "clock": "cuda"}
+
+
+def zoom_tiles_entities(geodata: str, zoom: int):
+    """Every tile of `zoom` the geodata covers, with its entities, and
+    the default stylesheet's styler -> (tiles_entities, styler)."""
+    from osm_renderer_tpu_torch.core.tile import Tile
+    from osm_renderer_tpu_torch.geodata.reader import GeodataReader
+    from osm_renderer_tpu_torch.mapcss.parser import parse_file
+    from osm_renderer_tpu_torch.mapcss.styler import Styler
+
+    reader = GeodataReader.load(geodata)
+    styler = Styler(parse_file(STYLESHEET_DIR, "default.mapcss"), "josm")
+    sh = 18 - zoom
+    zt = sorted(set(zip((reader.tiles["x"] >> sh).tolist(), (reader.tiles["y"] >> sh).tolist())))
+    tiles = [Tile(zoom, x, y) for x, y in zt]
+    return [(reader.get_entities_in_tile_with_neighbors(t), t) for t in tiles], styler
+
+
+def parse_args(argv, description: str) -> argparse.Namespace:
+    ap = argparse.ArgumentParser(description=description)
+    ap.add_argument("--reps", type=int, default=8)
+    ap.add_argument("--zoom", type=int, default=15)
+    ap.add_argument("--geodata", default=os.path.join(REPO_ROOT, "assets", "fixtures", "bigcity.bin"))
+    ap.add_argument("--device", default="cuda", help="cuda, cuda:N, or cpu (the plain versions)")
+    return ap.parse_args(argv)
+
+
+def main(argv=None) -> int:
+    from osm_renderer_tpu_torch.parallel.renderer import BatchRenderer, start_wire_copy
+    from osm_renderer_tpu_torch.utils.torch_setup import resolve_device
+
+    args = parse_args(argv, "Device ms of the render kernel and the v2 wire on one batch.")
+    device = resolve_device(args.device)
+    te, styler = zoom_tiles_entities(args.geodata, args.zoom)
+    n = len(te)
+    r = BatchRenderer(styler, stylesheet_dir=STYLESHEET_DIR, chunk_cache_tiles=4 * n,
+                      device=device, arena=True)
+    prep = r.prepare(te, 1)
+    # The first wire is v1 and teaches the renderer its palette; the
+    # timed calls ship the v2 wire, as warm serving does.
+    r.fetch_tile_view(start_wire_copy(r.render_prepared_rle(prep)))
+    got = device_ms_per_call(lambda: r.render_prepared_rle(prep), args.reps, KERNELS, device)
+    ms = got["ms"]
+    if got["clock"] == "cpu":
+        print(f"cpu: {ms:9.3f} ms/batch of CPU operator time in the plain versions "
+              f"(not a device time; {n} tiles)")
+        return 0
+    by = got["by_kernel"]
+    print(f"device: {ms:7.4f} ms/batch ({n} tiles, {n / ms * 1e3:7.0f} t/s): "
+          + ", ".join(f"{k} {v:.4f} ms" for k, v in by.items())
+          + f" [{got['launches']} launches in {args.reps} calls, {torch.cuda.get_device_name(device)}]")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -319,4 +319,6 @@ def test_no_port_file_imports_the_jax_package():
                 if name.split(".")[0] == "osm_renderer_tpu":
                     bad.append(f"{os.path.relpath(path, REPO_ROOT)}:{node.lineno}: {name}")
     assert len(files) > 40
+    tools = os.path.join(REPO_ROOT, "osm_renderer_tpu_torch", "tools")
+    assert {os.path.join(tools, f) for f in ("kdevice.py", "kdecomp_device.py")} <= set(files)
     assert not bad, bad

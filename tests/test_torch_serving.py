@@ -223,7 +223,7 @@ def test_port_service_failures_surface(mini_bin, styler, monkeypatch):
     from osm_renderer_tpu_torch.parallel.renderer import BatchRenderer
 
     with pytest.raises(ValueError):
-        TileService(mini_bin, styler, STYLESHEET_DIR, device="cpu", gpus=2)
+        TileService(mini_bin, styler, STYLESHEET_DIR, device="cpu", gpus=0)
     with pytest.raises(ValueError):
         TileService(mini_bin, styler, STYLESHEET_DIR, device="cpu", precision="double")
     port = TileService(mini_bin, styler, STYLESHEET_DIR, device="cpu")
