@@ -101,13 +101,31 @@ Phases (any failure exits non-zero; no phase is skipped):
    still pending right after start_wire_copy, and the wire read back
    after the wait equal to the batch's pixels (G >= 2 holds the
    events' device; G = 1 only their stream order).
+9. The port's tools at scale (osm_renderer_tpu_torch/tools/): (a)
+   scale_sweep --labels: the 112-block city (tools/make_fixture.py
+   --blocks 112, the port's importer), 915 tiles of z12-z17 served cold,
+   warm1 and warm2 through a 160-tile chunk cache, then a dense z14
+   group cold and warm; bars: no renderer's arena leaks a row, warm1 and
+   warm2 give PNGs of equal sizes, evictions > 0 and halvings > 0, every
+   served tile came from the device but the oracle tiles the tool
+   counts, and the render, emit and expand kernels launched (their
+   counters set to 0 just before, read just after, the render launches
+   equal to the renderers' batches); tiles/s of each pass and the
+   counters printed; (b) the same 915 tiles on an unpressured service
+   (a 4096-tile cache, the default arena) decode to warm2's pixels; (c)
+   parity_check --all-z 13 on the same city, labels off: worst <=
+   1/255; (d) warmup, profile_serving, cold_profile, ktime and kdecomp
+   at their defaults exit 0, and kdecomp's `full` is within 10 % of
+   phase 3's device ms on bigcity z15.  Each sub-phase's wall time is
+   printed with the card's name and power limit.
 7. None of jax, jaxlib, fontTools or the JAX package osm_renderer_tpu
    was loaded (the import guard refuses all four here and in the
    server).  Phase 7 runs last.
 
 The second-to-last line is the kernels JSON object (each kernel's "ms"
 is its device ms on the bigcity z15 batch: the render kernel's, the v1
-wire's for rle_emit, the whole v2 wire's for rle_expand), the last line
+wire's for rle_emit, the whole v2 wire's for rle_expand; "launches" are
+phase 9 (a)'s, the sweep's), the last line
 {"ok": true, "device": {...}}.  Without a CUDA device, or outside a
 checkout of the repository, it exits non-zero and prints no result.
 """
@@ -1424,6 +1442,130 @@ def phase_multi(styler, smi, device):
             "per tile " + ", ".join(f"{k} {v:.3f} ms" for k, v in spans.items()) + f" ({smi})")
 
 
+def _run_tool(main_fn, argv):
+    """A tool's main(argv) in this process -> (exit status, its stdout
+    lines), each line logged indented."""
+    import contextlib
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = main_fn(argv)
+    lines = buf.getvalue().strip().splitlines()
+    for line in lines:
+        log(f"    | {line}")
+    return rc, lines
+
+
+def phase_tools(smi, device, phase3_dev_ms, out):
+    """The port's tools at scale (osm_renderer_tpu_torch/tools/):
+    (a) scale_sweep --labels on the 112-block city, 915 tiles through a
+    160-tile chunk cache, the launch counters set to 0 just before and
+    read just after; bars: no arena leaks a row on any renderer, warm1
+    and warm2 sizes equal, evictions > 0 and halvings > 0, every served
+    tile from the device but the oracle tiles the tool counts, and each
+    kernel launched; (b) the same tiles on an unpressured control service
+    (4096-tile cache, the default arena) decode to warm2's pixels; (c)
+    parity_check --all-z 13 on that city, labels off: worst <= 1/255;
+    (d) warmup, profile_serving, cold_profile, ktime and kdecomp at their
+    defaults return 0, and kdecomp's `full` is within 10 % of phase 3's
+    device ms on bigcity z15."""
+    import numpy as np
+
+    from osm_renderer_tpu_torch.ops import render_cuda, rle_cuda
+    from osm_renderer_tpu_torch.tools import (
+        cold_profile,
+        kdecomp,
+        ktime,
+        parity_check,
+        profile_serving,
+        scale_sweep,
+        warmup,
+    )
+
+    t0 = time.perf_counter()
+    args = scale_sweep.parse_args(["--labels", "--device", str(device)])
+    scale_sweep.ensure_fixture(args.blocks)
+    log(f"  (a) fixture hugecity{args.blocks} ready in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    render_cuda.RENDER_KERNEL_LAUNCHES = 0
+    rle_cuda.EMIT_KERNEL_LAUNCHES = 0
+    rle_cuda.EXPAND_KERNEL_LAUNCHES = 0
+    res = scale_sweep.run_sweep(args)
+    launches = {"render": render_cuda.RENDER_KERNEL_LAUNCHES,
+                "emit": rle_cuda.EMIT_KERNEL_LAUNCHES,
+                "expand": rle_cuda.EXPAND_KERNEL_LAUNCHES}
+    c, n = res["counters"], len(res["tiles"])
+    served = sum(len(p) for p in res["pngs"].values())
+    rates = ", ".join(f"{k} {len(res['pngs'][k]) / v:.1f} t/s ({v:.2f} s)"
+                      for k, v in res["seconds"].items())
+    log(f"  (a) {n} tiles {res['per_zoom']}, cache {args.cache_tiles} tiles a renderer, labels on: "
+        f"{rates}; kernel launches {launches}; counters {c}; arenas {res['arenas']}; "
+        f"warm1/warm2 size mismatches {res['mismatches']} (all size differences {res['sized']}) "
+        f"({smi})")
+    bad = scale_sweep.failures(res)
+    if c["evictions"] <= 0 or c["halvings"] <= 0:
+        bad.append(f"evictions {c['evictions']} and halvings {c['halvings']} must both be > 0")
+    if c["device_tiles"] + c["oracle_tiles"] != served:
+        bad.append(f"{c['device_tiles']} device and {c['oracle_tiles']} oracle tiles for "
+                   f"{served} served")
+    if launches["render"] != c["arena_batches"] + c["plain_batches"]:
+        bad.append(f"render launches {launches['render']} != the renderers' batches")
+    if min(launches.values()) <= 0:
+        bad.append(f"a kernel of the path was not launched: {launches}")
+    if bad:
+        raise AssertionError("(a) " + "; ".join(bad))
+    out["sweep_launches"] = launches
+    log(f"  (a) took {time.perf_counter() - t0:.1f} s ({smi})")
+
+    t0 = time.perf_counter()
+    control = scale_sweep.make_service(res["binf"], res["styler"], 4096, True, str(device))
+    pngs, dt = scale_sweep.serve(control, res["tiles"], args.batch)
+    warm2 = res["pngs"]["warm2"]
+    differ = [t for t in res["tiles"]
+              if not np.array_equal(scale_sweep.decode_png(pngs[t]),
+                                    scale_sweep.decode_png(warm2[t]))]
+    log(f"  (b) unpressured control (cache 4096 tiles, default arena): {n} tiles in {dt:.2f} s "
+        f"({n / dt:.1f} t/s), {len(differ)} decode to other pixels than warm2's; "
+        f"counters {scale_sweep.counters(control)} ({smi})")
+    if differ:
+        raise AssertionError(f"(b) {len(differ)} tiles differ from the control, first "
+                             f"{differ[:3]}")
+    binf = res["binf"]
+    del res, control, pngs, warm2
+    log(f"  (b) took {time.perf_counter() - t0:.1f} s ({smi})")
+
+    t0 = time.perf_counter()
+    sheet = os.path.join(STYLESHEET_DIR, "default.mapcss")
+    rc, lines = _run_tool(parity_check.main, [binf, sheet, "--all-z", "13",
+                                              "--device", str(device)])
+    worst = int(lines[-1].split()[1].split("/")[0])
+    if rc != 0 or worst > 1:
+        raise AssertionError(f"(c) parity_check exited {rc}, worst {worst}/255")
+    log(f"  (c) took {time.perf_counter() - t0:.1f} s ({smi})")
+
+    for name, main_fn, argv in (
+            ("warmup", warmup.main, [MINI_BIN, sheet]),
+            ("profile_serving", profile_serving.main, []),
+            ("cold_profile", cold_profile.main, []),
+            ("ktime", ktime.main, []),
+            ("kdecomp", kdecomp.main, [])):
+        t0 = time.perf_counter()
+        log(f"  (d) {name}")
+        rc, lines = _run_tool(main_fn, argv)
+        if rc != 0:
+            raise AssertionError(f"(d) {name} exited {rc}")
+        if name == "kdecomp":
+            full = float(next(line for line in lines
+                              if line.strip().startswith("full:")).split()[1])
+            off = abs(full - phase3_dev_ms) / phase3_dev_ms
+            log(f"  (d) kdecomp full {full:.4f} ms vs phase 3's device_ms {phase3_dev_ms:.4f}: "
+                f"{100 * off:.1f} % apart")
+            if off > 0.10:
+                raise AssertionError(f"(d) kdecomp full {full:.4f} ms is {100 * off:.1f} % off "
+                                     f"phase 3's {phase3_dev_ms:.4f}")
+        log(f"  (d) {name} took {time.perf_counter() - t0:.1f} s ({smi})")
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "osm_renderer_tpu_torch")):
         return fail("run from a checkout of the repository (osm_renderer_tpu_torch/ missing)")
@@ -1515,8 +1657,7 @@ def main() -> int:
     log(f"  phase 4c took {time.perf_counter() - t0:.1f} s ({smi})")
 
     log("phase 5: served path (renderer_main, backend = device, labels = yes)")
-    served: dict = {}
-    phase_server(styler, served)
+    phase_server(styler, {})
 
     log("phase 5b: served exact (renderer_main, precision = exact, labels = yes)")
     t0 = time.perf_counter()
@@ -1534,6 +1675,17 @@ def main() -> int:
     phase_multi(styler, smi, device)
     log(f"  phase 8 took {time.perf_counter() - t0:.1f} s ({smi})")
 
+    log("phase 9: the tools at scale (bars: (a) the 915-tile sweep under a 160-tile cache, "
+        "labels on: no arena leak, warm1 = warm2 sizes, evictions and halvings, tiles from the "
+        "device; (b) = an unpressured control's pixels; (c) parity_check --all-z 13 <= 1/255; "
+        "(d) warmup, profile_serving, cold_profile, ktime, kdecomp exit 0, kdecomp's full "
+        "within 10 % of phase 3)")
+    t0 = time.perf_counter()
+    tools_out: dict = {}
+    big = next(r for r in rows if r["name"] == "bigcity_z15[0]")
+    phase_tools(smi, device, big["kernel_dev_ms"], tools_out)
+    log(f"  phase 9 took {time.perf_counter() - t0:.1f} s ({smi})")
+
     log("phase 7: no jax, no fontTools, no osm_renderer_tpu")
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in REFUSED)
     if loaded:
@@ -1550,9 +1702,10 @@ def main() -> int:
         "rle_expand": (worst["rle_expand"], wire_head["v2_dev_ms"], wire_head["v2_plain_ms"],
                        wire_head["v2_bound_ms"], "bytes"),
     }
-    launches = {"render_planar": served["launches"]["render"],
-                "rle_emit": served["launches"]["emit"],
-                "rle_expand": served["launches"]["expand"]}
+    # Launches in this slice's main path: phase 9 (a)'s sweep.
+    sweep = tools_out["sweep_launches"]
+    launches = {"render_planar": sweep["render"], "rle_emit": sweep["emit"],
+                "rle_expand": sweep["expand"]}
     kernels = {"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,
          "launches": launches[name], "max_abs_err": measured[name][0],

@@ -17,7 +17,6 @@ is pinned by tests/test_native_assembler.py.
 from __future__ import annotations
 
 import ctypes
-import os
 import threading
 from typing import Optional
 
@@ -36,13 +35,7 @@ from osm_renderer_tpu_torch.draw.primitives import (
 from osm_renderer_tpu_torch.geodata.reader import Multipolygon, Way
 from osm_renderer_tpu_torch.ops.coverage_np import LINE_CAP_ROUND
 from osm_renderer_tpu_torch.ops.chunk_layout import TileChunks, _pad_group, build_tile_chunks
-from osm_renderer_tpu_torch.utils.torch_setup import build_native_host_libs
-
-_REPO_ROOT = os.path.dirname(
-    os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-)
-_NATIVE_DIR = os.path.join(_REPO_ROOT, "native")
-_LIB_PATH = os.path.join(_NATIVE_DIR, "libosmr_assembler.so")
+from osm_renderer_tpu_torch.utils.torch_setup import host_lib_path
 
 _I64 = np.ctypeslib.ndpointer(dtype=np.int64, flags="C_CONTIGUOUS")
 _I32 = np.ctypeslib.ndpointer(dtype=np.int32, flags="C_CONTIGUOUS")
@@ -65,8 +58,7 @@ def get_native():
         if _native is not None or _native_failed:
             return _native
         try:
-            build_native_host_libs()
-            lib = ctypes.CDLL(_LIB_PATH)
+            lib = ctypes.CDLL(host_lib_path("assembler"))
             lib.osmr_assemble_tile.restype = ctypes.c_int64
             lib.osmr_assemble_tile.argtypes = [
                 _I64, _I64, _I64, ctypes.c_int64, ctypes.c_int32,

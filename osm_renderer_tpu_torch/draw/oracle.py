@@ -3,22 +3,18 @@
 The oracle implements the reference renderer's exact per-tile draw
 semantics and serves as (a) the pixel-parity ground truth for the
 JAX/Pallas device kernels and (b) the host-side CPU fallback path.
-The shared library is built by name on first use
-(`utils.torch_setup.build_native_host_libs`).
+The shared library is built on first use, for the port alone
+(`utils.torch_setup.host_lib_path`).
 """
 
 from __future__ import annotations
 
 import ctypes
-import os
 import threading
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
-_REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-_NATIVE_DIR = os.path.join(_REPO_ROOT, "native")
-_LIB_PATH = os.path.join(_NATIVE_DIR, "libosmr_oracle.so")
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -32,12 +28,6 @@ _F64P = np.ctypeslib.ndpointer(dtype=np.float64, flags="C_CONTIGUOUS")
 _U8P = np.ctypeslib.ndpointer(dtype=np.uint8, flags="C_CONTIGUOUS")
 
 
-def _build_library() -> None:
-    from osm_renderer_tpu_torch.utils.torch_setup import build_native_host_libs
-
-    build_native_host_libs()
-
-
 def _get_lib():
     global _lib
     if _lib is not None:
@@ -45,8 +35,9 @@ def _get_lib():
     with _lib_lock:
         if _lib is not None:
             return _lib
-        _build_library()
-        lib = ctypes.CDLL(_LIB_PATH)
+        from osm_renderer_tpu_torch.utils.torch_setup import host_lib_path
+
+        lib = ctypes.CDLL(host_lib_path("oracle"))
 
         lib.osmr_tile_new.restype = ctypes.c_void_p
         lib.osmr_tile_new.argtypes = [ctypes.c_size_t]

@@ -11,9 +11,7 @@ Two paths, both RGB8 like the reference's output:
 from __future__ import annotations
 
 import ctypes
-import os
 import struct
-import subprocess
 import threading
 import zlib
 from typing import Optional
@@ -22,11 +20,6 @@ import numpy as np
 
 _PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 
-_REPO_ROOT = os.path.dirname(
-    os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-)
-_NATIVE_DIR = os.path.join(_REPO_ROOT, "native")
-_LIB_PATH = os.path.join(_NATIVE_DIR, "libosmr_pngenc.so")
 _U8P = np.ctypeslib.ndpointer(dtype=np.uint8, flags="C_CONTIGUOUS")
 _I32P = np.ctypeslib.ndpointer(dtype=np.int32, flags="C_CONTIGUOUS")
 _F64P = np.ctypeslib.ndpointer(dtype=np.float64, flags="C_CONTIGUOUS")
@@ -45,14 +38,9 @@ def _get_native():
         if _native is not None or _native_failed:
             return _native
         try:
-            src = os.path.join(_NATIVE_DIR, "pngenc.cpp")
-            if not os.path.exists(_LIB_PATH) or os.path.getmtime(
-                _LIB_PATH
-            ) < os.path.getmtime(src):
-                subprocess.run(
-                    ["make", "-C", _NATIVE_DIR], check=True, capture_output=True
-                )
-            lib = ctypes.CDLL(_LIB_PATH)
+            from osm_renderer_tpu_torch.utils.torch_setup import host_lib_path
+
+            lib = ctypes.CDLL(host_lib_path("pngenc"))
             lib.osmr_png_encode.argtypes = [
                 _U8P, ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
                 ctypes.c_char_p, ctypes.c_size_t,

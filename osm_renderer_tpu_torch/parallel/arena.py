@@ -65,6 +65,7 @@ class ChunkArena:
         self._free: List[Tuple[int, int]] = []  # (off, n), sorted by off
         self._tail = 1  # row 0 reserved as the pad row
         self.generation = 0  # bumped on clear(); cached idx must match
+        self.grows = 0  # times the tensors were reallocated larger
 
     # ---------------------------------------------------------- alloc --
 
@@ -147,6 +148,7 @@ class ChunkArena:
                 dst[: self.cap].copy_(src)
         self.geom, self.trav, self.sprof, self.aux, self.items = new
         self.cap = new_cap
+        self.grows += 1
 
     def insert(self, pairs) -> None:
         """Insert [(key, TileChunks)]: ONE host-to-device upload for all

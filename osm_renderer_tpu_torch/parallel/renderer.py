@@ -182,6 +182,9 @@ class BatchRenderer:
         self.batch_counts = {"arena": 0, "plain": 0, "dense": 0, "v1": 0, "v2": 0, "raw": 0,
                              "labeled_tiles": 0}
         self.readback_bytes = {"wire": 0, "planar": 0}
+        # Tiles dropped from the chunk cache to make room (their arena
+        # rows freed).
+        self.evictions = 0
         self.icon_cache = None
         if stylesheet_dir is not None:
             from osm_renderer_tpu_torch.draw.labels.icons import IconCache
@@ -241,6 +244,7 @@ class BatchRenderer:
                     self._chunk_cache[key] = (chunks, has_icon_fills)
                     while len(self._chunk_cache) > self.chunk_cache_tiles:
                         ev_key, _ = self._chunk_cache.popitem(last=False)
+                        self.evictions += 1
                         if self.chunk_arena is not None:
                             self.chunk_arena.free(ev_key)
                 if len(patterns.tiles) > self.MAX_PERSISTED_PATTERNS:

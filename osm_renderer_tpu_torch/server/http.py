@@ -177,8 +177,12 @@ class TileService:
         self._stylesheet_dir = stylesheet_dir
         self.batch_renderer = None
         self.batch_renderers: List[BatchRenderer] = []
-        # Tiles handed to each renderer, by its index in batch_renderers.
+        # Tiles handed to each renderer, by its index in batch_renderers;
+        # tiles served from a device view ("device") or by the C++ oracle
+        # ("oracle"); chunk-dense batches halved on MAX_BATCH_CHUNKS.
         self.tiles_by_renderer: Counter = Counter()
+        self.tiles_served: Counter = Counter()
+        self.halvings = 0
         if backend == "cpu":
             return
         self.device = resolve_device(device)
@@ -283,9 +287,9 @@ class TileService:
         device_labeled: Set[int] = set()
         staged = []
         for d, idxs in by_dev.items():
-            prepared = self.batch_renderers[d].prepare(
-                [tiles_entities[i] for i in idxs], scale,
-                label_layers=[compacts[i] for i in idxs] if compacts is not None else None)
+            prepared = self._prepare_shard(
+                self.batch_renderers[d], [tiles_entities[i] for i in idxs], scale,
+                [compacts[i] for i in idxs] if compacts is not None else None)
             needs_cpu.update(idxs[f] for f in prepared.cpu_fallback_tiles)
             device_labeled.update(idxs[f] for f in prepared.device_labeled)
             staged.append((d, idxs, prepared))
@@ -301,6 +305,23 @@ class TileService:
             self.tiles_by_renderer[d] += len(idxs)
             shards.append((d, idxs, res))
         return shards, needs_cpu, prep_dt, t0, device_labeled
+
+    def _prepare_shard(self, renderer: BatchRenderer, tiles_entities, scale: int, compacts):
+        """`renderer.prepare`, with the entities of every tile fetched
+        again when a tile that was cached as its group began has been
+        evicted since (by an earlier sub-batch of the group, or by the
+        inserts of this batch before its turn), so that it renders on the
+        device instead of sending the batch to the oracle."""
+        try:
+            return renderer.prepare(tiles_entities, scale, label_layers=compacts)
+        except ValueError as e:
+            if "no cached chunks and no entities" not in str(e):
+                raise
+        tiles_entities = [
+            (e if e is not None
+             else self.reader.get_entities_in_tile_with_neighbors(t, self.osm_ids), t)
+            for e, t in tiles_entities]
+        return renderer.prepare(tiles_entities, scale, label_layers=compacts)
 
     def _collect_group_device(self, pending):
         """Wait for every shard of a dispatched batch and fetch its wire:
@@ -413,6 +434,7 @@ class TileService:
             self._encode_sub(sub_group, sub_te, scale, out, ent_share, sub_compacts,
                              None, {0}, 0.0, None, None, set())
             return
+        self.halvings += 1
         mid = n // 2
         for sl in (slice(0, mid), slice(mid, n)):
             sc = sub_compacts[sl] if sub_compacts is not None else None
@@ -441,12 +463,14 @@ class TileService:
                 perfstats.add_span("Device readback (batch share)", d2h_dt / n)
             with perfstats.measure("Compose and encode"):
                 if gi in needs_cpu or view is None:
+                    self.tiles_served["oracle"] += 1
                     if entities is None:
                         entities = self.reader.get_entities_in_tile_with_neighbors(
                             t, self.osm_ids)
                     img = self._cpu_drawer().draw_to_pixels(entities, t, scale, self.styler)
                     out[i] = rgb_to_png(img, self.png_level)
                 else:
+                    self.tiles_served["device"] += 1
                     compact = sub_compacts[gi] if sub_compacts is not None else None
                     png = None
                     if compact is None or gi in device_labeled:

@@ -1,0 +1,140 @@
+"""Stage timing of the warm serving loop, a batch at a time.
+
+Counterpart of `tools/profile_serving.py`.  Every z15 tile of a city
+(the minicity by default) is prepared once cold to fill the chunk cache
+and the arena, then served warm `--reps` times, each batch timed by
+stage, each stage ending in `torch.cuda.synchronize` so its device work
+lands in it:
+
+    prepare   the chunk cache and the packed upload (the arena's row
+              index and the per-chunk scalars), or with `--no-arena` the
+              chunk arrays concatenated and uploaded
+    dispatch  the render kernel and the wire, with the wire's pinned
+              copy to the host started (`start_wire_copy`), as the server
+              dispatches
+    fetch     the wire's host view, decoded to RGB (`fetch_rgb_rle`)
+    png       one RGB PNG a tile
+
+Then the arena's packed upload size, or with `--no-arena` the plain
+upload split into concat and upload; and the wire's device-to-host copy
+against its decode.
+
+    python -m osm_renderer_tpu_torch.tools.profile_serving [--no-arena] [--reps 6] \\
+        [--geodata assets/fixtures/minicity.bin] [--device cuda]
+
+On the card by default; `--device cpu` (for the tests) runs the plain
+versions, and its times are CPU times.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+import time
+
+import numpy as np
+import torch
+
+from osm_renderer_tpu_torch.tools.kdevice import REPO_ROOT, STYLESHEET_DIR, device_name
+
+STAGES = ("prepare", "dispatch", "fetch", "png", "total")
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__)
+    ap.add_argument("--no-arena", action="store_true",
+                    help="the plain upload (the JAX tool's OSMR_ARENA=0)")
+    ap.add_argument("--reps", type=int, default=6)
+    ap.add_argument("--geodata",
+                    default=os.path.join(REPO_ROOT, "assets", "fixtures", "minicity.bin"))
+    ap.add_argument("--device", default="cuda", help="cuda, cuda:N, or cpu (the plain versions)")
+    args = ap.parse_args(argv)
+
+    from osm_renderer_tpu_torch.draw.png_writer import rgb_to_png
+    from osm_renderer_tpu_torch.ops import chunk_layout as L
+    from osm_renderer_tpu_torch.ops import render_cuda as RC
+    from osm_renderer_tpu_torch.parallel.renderer import BatchRenderer, start_wire_copy
+    from osm_renderer_tpu_torch.tools.kdevice import zoom_tiles_entities
+    from osm_renderer_tpu_torch.utils.torch_setup import resolve_device
+
+    device = resolve_device(args.device)
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    te, styler = zoom_tiles_entities(args.geodata, 15)
+    tiles = [t for _, t in te]
+    n = len(te)
+    arena = not args.no_arena
+    dev = BatchRenderer(styler, stylesheet_dir=STYLESHEET_DIR, chunk_cache_tiles=256,
+                        arena=arena, device=device)
+    prepared = dev.prepare(te, scale=1)  # cold: fills the cache
+    # The first wire is v1 and teaches the palette; the second is v2.
+    dev.fetch_rgb_rle(start_wire_copy(dev.render_prepared_rle(prepared)))
+    dev.fetch_rgb_rle(start_wire_copy(dev.render_prepared_rle(prepared)))
+
+    te_none = [(None, t) for t in tiles]
+    stages = {k: [] for k in STAGES}
+    for _ in range(args.reps):
+        sync()
+        t0 = time.perf_counter()
+        p = dev.prepare(te_none, scale=1)
+        sync()
+        t1 = time.perf_counter()
+        r = start_wire_copy(dev.render_prepared_rle(p))
+        sync()
+        t2 = time.perf_counter()
+        rgb = dev.fetch_rgb_rle(r)
+        t3 = time.perf_counter()
+        [rgb_to_png(rgb[i], 1) for i in range(n)]
+        t4 = time.perf_counter()
+        for k, v in zip(STAGES, (t1 - t0, t2 - t1, t3 - t2, t4 - t3, t4 - t0)):
+            stages[k].append(v)
+
+    def median(v):
+        return sorted(v)[len(v) // 2]
+
+    for k, v in stages.items():
+        ms = " ".join(f"{x * 1e3:7.1f}" for x in v)
+        print(f"{k:9s} {ms}   median {median(v) * 1e3:7.1f} ms")
+    wires = {k: dev.batch_counts[k] for k in ("v1", "v2")}
+    print(f"n={n} tiles; median total -> {n / median(stages['total']):.1f} t/s "
+          f"(unpipelined) on {device_name(device)}; wires {wires}")
+
+    if not arena:
+        # The plain upload's prepare, split: concat against upload.
+        profiles, patterns = dev._tables_for(1)
+        chunks = [dev._chunk_cache[(t.zoom, t.x, t.y, 1)][0] for t in tiles]
+        t0 = time.perf_counter()
+        pb = L.concat_pallas_batch(chunks, profiles, 256, patterns)
+        t1 = time.perf_counter()
+        RC.from_numpy_batch(pb, dev._canvas(), device, n)
+        sync()
+        t2 = time.perf_counter()
+        print(f"concat {1e3 * (t1 - t0):.1f} ms  h2d+wait {1e3 * (t2 - t1):.1f} ms")
+        sizes = {f: np.asarray(a).nbytes for f, a in zip(L.PallasBatch._fields, pb)}
+        tot = sum(sizes.values())
+        print(f"batch bytes: {tot / 1e6:.2f} MB  " + "  ".join(
+            f"{k}={v / 1e3:.0f}K" for k, v in sorted(sizes.items(), key=lambda x: -x[1])[:8]))
+    else:
+        p = dev.prepare(te_none, scale=1)
+        print(f"arena packed upload: {p.arena_packed.nbytes / 1e3:.1f} KB "
+              f"({p.arena_packed.shape[1]} chunks)")
+
+    # Fetch, split: the wire's copy to the host against the decode.
+    r = dev.render_prepared_rle(dev.prepare(te_none, scale=1))
+    sync()
+    t0 = time.perf_counter()
+    wire = r.wire.cpu().numpy()
+    t1 = time.perf_counter()
+    dev.fetch_rgb_rle(r)
+    t2 = time.perf_counter()
+    print(f"wire d2h {1e3 * (t1 - t0):.1f} ms ({wire.nbytes / 1e3:.0f} KB)  "
+          f"decode(+refetch) {1e3 * (t2 - t1):.1f} ms")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

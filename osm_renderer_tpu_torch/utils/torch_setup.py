@@ -20,7 +20,6 @@ _REPO_ROOT = os.path.dirname(
 )
 _NATIVE_DIR = os.path.join(_REPO_ROOT, "native")
 _native_lock = threading.Lock()
-_native_built = False
 
 
 def resolve_device(name: str = "cuda") -> torch.device:
@@ -54,31 +53,66 @@ def build_dir() -> str:
     return path
 
 
-def build_native_host_libs() -> None:
-    """Build the C++ oracle and chunk assembler of `native/` by name.
+# The C++ sources of `native/`, built for the port: name -> (source, link
+# flags).  The compile flags are `native/Makefile`'s.
+_HOST_LIBS = {
+    "oracle": ("oracle.cpp", ()),
+    "assembler": ("assembler.cpp", ()),
+    "pngenc": ("pngenc.cpp", ("-ldeflate",)),
+}
+HOST_CXXFLAGS = ["-O2", "-std=c++17", "-fPIC", "-Wall", "-Wextra", "-ffp-contract=off", "-shared"]
+_host_paths: dict = {}
 
-    `make -C native` with no target also builds the libdeflate PNG
-    encoder and stops at the first failure, so on a host without
-    libdeflate it would leave the assembler unbuilt.  Naming the two
-    targets keeps them independent of it; the PNG writer falls back to
-    zlib by itself when its encoder cannot be built.  Raises when the
-    build fails."""
-    global _native_built
-    if _native_built:
-        return
+
+def host_lib_path(name: str) -> str:
+    """Path of the port's build of `native/<source>` for `name` ("oracle",
+    "assembler" or "pngenc"), compiled on first use.  Raises when the
+    build fails (pngenc needs libdeflate).
+
+    The library goes to the kernel build directory under a name hashed
+    from its source and flags, never to `native/`, whose libraries the
+    JAX package's loaders build in place with `make`.  It is compiled to
+    a temporary name and renamed into place under an `fcntl` lock on
+    `host_libs.lock` in the build directory, so no process, in this one or another, loads a
+    library the port has half written, and several processes build it
+    once."""
+    got = _host_paths.get(name)
+    if got is not None:
+        return got
+    import fcntl
+    import hashlib
+
+    source, libs = _HOST_LIBS[name]
+    src_path = os.path.join(_NATIVE_DIR, source)
+    flags = HOST_CXXFLAGS + list(libs)
+    with open(src_path, "rb") as f:
+        digest = hashlib.sha256(f.read() + " ".join(flags).encode()).hexdigest()[:16]
+    path = os.path.join(build_dir(), f"libosmr_{name}_{digest}.so")
     with _native_lock:
-        if _native_built:
-            return
-        proc = subprocess.run(
-            ["make", "-C", _NATIVE_DIR, "libosmr_oracle.so", "libosmr_assembler.so"],
-            capture_output=True, text=True,
-        )
-        if proc.returncode != 0:
-            raise RuntimeError(
-                "building native/libosmr_oracle.so and libosmr_assembler.so "
-                f"failed:\n{proc.stdout}\n{proc.stderr}"
-            )
-        _native_built = True
+        if not os.path.exists(path):
+            with open(os.path.join(build_dir(), "host_libs.lock"), "w") as lock:
+                fcntl.flock(lock, fcntl.LOCK_EX)
+                if not os.path.exists(path):
+                    tmp = f"{path}.{os.getpid()}.tmp"
+                    proc = subprocess.run(["g++", *HOST_CXXFLAGS, "-o", tmp, src_path, *libs],
+                                          capture_output=True, text=True)
+                    if proc.returncode != 0:
+                        if os.path.exists(tmp):
+                            os.remove(tmp)
+                        raise RuntimeError(
+                            f"building {src_path} failed:\n{proc.stdout}\n{proc.stderr}")
+                    os.replace(tmp, path)
+        _host_paths[name] = path
+    return path
+
+
+def build_native_host_libs() -> None:
+    """Build the C++ oracle and chunk assembler of `native/` for the port
+    (`host_lib_path`).  The libdeflate PNG encoder is built apart, by the
+    PNG writer, which falls back to zlib without it.  Raises when a build
+    fails."""
+    for name in ("oracle", "assembler"):
+        host_lib_path(name)
 
 
 def next_pow2(n: int, minimum: int = 1) -> int:

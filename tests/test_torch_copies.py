@@ -320,5 +320,7 @@ def test_no_port_file_imports_the_jax_package():
                     bad.append(f"{os.path.relpath(path, REPO_ROOT)}:{node.lineno}: {name}")
     assert len(files) > 40
     tools = os.path.join(REPO_ROOT, "osm_renderer_tpu_torch", "tools")
-    assert {os.path.join(tools, f) for f in ("kdevice.py", "kdecomp_device.py")} <= set(files)
+    assert {os.path.join(tools, f"{name}.py") for name in (
+        "kdevice", "kdecomp_device", "scale_sweep", "parity_check", "warmup", "profile_serving",
+        "cold_profile", "ktime", "kdecomp")} <= set(files)
     assert not bad, bad
