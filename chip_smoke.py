@@ -118,14 +118,39 @@ Phases (any failure exits non-zero; no phase is skipped):
    at their defaults exit 0, and kdecomp's `full` is within 10 % of
    phase 3's device ms on bigcity z15.  Each sub-phase's wall time is
    printed with the card's name and power limit.
+10. The reference's production stylesheet (tests/fixtures/mapcss/
+   osmosnimki-minimal.mapcss, type mapsme), then the port's benchmark.
+   (a) The render kernel against its twin on minicity z15, z16 and
+   z17 @2x (12 middle tiles) and bigcity z15, split as the server
+   splits, with phase 3's bars, times and bounds, and every tile but
+   the oracle's within 1/255 of CpuDrawer, labels off; both wires on
+   those batches with phase 4's bars (bigcity z15 also at the edge caps,
+   and timed); the labeled entry with phase 4b's bars; renderer_main
+   with type = mapsme with phase 5's bars (log
+   build/smoke/server_mapsme.log).  Prints the chunk-kind counts beside
+   phase 3's, the halvings, slab rows, the blit's ms and the raw-wire
+   batches.  (b) The render kernel against its twin, with phase 3's
+   bars, on each render batch of the bench's that phase 3 does not
+   hold, at the bench's shapes: its default-stylesheet minicity
+   pyramid (z12, z13, z14, z15, z16, z17, and the z12-z17 fold, split
+   as the server splits) and its 16-tile @2x batch; then
+   `python -m osm_renderer_tpu_torch.bench` in a subprocess under the
+   import guard (stderr in build/smoke/bench.log), its JSON line
+   printed on a line of its own.  Bars: exit 0, correct true (its
+   served tiles held to their wires and to CpuDrawer among its checks),
+   every metric a positive number, each kernel launched, and the card
+   it names the one phase 1 names.
 7. None of jax, jaxlib, fontTools or the JAX package osm_renderer_tpu
    was loaded (the import guard refuses all four here and in the
    server).  Phase 7 runs last.
 
 The second-to-last line is the kernels JSON object (each kernel's "ms"
 is its device ms on the bigcity z15 batch: the render kernel's, the v1
-wire's for rle_emit, the whole v2 wire's for rle_expand; "launches" are
-phase 9 (a)'s, the sweep's), the last line
+wire's for rle_emit, the whole v2 wire's for rle_expand; "max_abs_err"
+covers phases 3, 4 and 10, the bench's render batches among them;
+"launches" are phase 10 (b)'s, the bench's;
+the sweep's and the mapsme server's are printed in phase 10), the last
+line
 {"ok": true, "device": {...}}.  Without a CUDA device, or outside a
 checkout of the repository, it exits non-zero and prints no result.
 """
@@ -144,6 +169,12 @@ import urllib.request
 ROOT = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(ROOT, "build", "smoke")
 STYLESHEET_DIR = os.path.join(ROOT, "assets", "stylesheets")
+# The reference's production stylesheet (phase 10).
+PROD_DIR = os.path.join(ROOT, "tests", "fixtures", "mapcss")
+PROD_SHEET = "osmosnimki-minimal.mapcss"
+# (directory, file, type) of each stylesheet the smoke run serves.
+DEFAULT_STYLE = (STYLESHEET_DIR, "default.mapcss", "josm")
+PROD_STYLE = (PROD_DIR, PROD_SHEET, "mapsme")
 MINI_OSM = os.path.join(ROOT, "assets", "fixtures", "minicity.osm")
 MINI_BIN = os.path.join(ROOT, "assets", "fixtures", "minicity.bin")
 BIG_OSM = os.path.join(ROOT, "assets", "fixtures", "bigcity.osm")
@@ -185,26 +216,10 @@ def fail(msg: str) -> int:
 
 
 def build_fixtures() -> None:
-    from osm_renderer_tpu_torch.geodata.importer import import_osm
+    from osm_renderer_tpu_torch.tools.corpus import build_fixture
 
     for osm, binf, blocks in ((MINI_OSM, MINI_BIN, 24), (BIG_OSM, BIG_BIN, 48)):
-        if not os.path.exists(binf):
-            os.makedirs(os.path.dirname(osm), exist_ok=True)
-            subprocess.run(
-                [sys.executable, os.path.join(ROOT, "tools", "make_fixture.py"), osm,
-                 "--blocks", str(blocks)],
-                check=True, cwd=ROOT, stdout=subprocess.DEVNULL,
-            )
-            import_osm(osm, binf)
-
-
-def z_tiles(reader, zoom: int):
-    from osm_renderer_tpu_torch.core.tile import Tile
-
-    sh = 18 - zoom
-    xs = reader.tiles["x"] >> sh
-    ys = reader.tiles["y"] >> sh
-    return [Tile(zoom, x, y) for x, y in sorted(set(zip(xs.tolist(), ys.tolist())))]
+        build_fixture(osm, binf, blocks)
 
 
 def painted(planar, canvas_u8):
@@ -223,36 +238,6 @@ def time_ms(fn, reps: int = 5) -> float:
     fn()
     torch.cuda.synchronize()
     ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    ev0.record()
-    for _ in range(reps):
-        fn()
-    ev1.record()
-    torch.cuda.synchronize()
-    return ev0.elapsed_time(ev1) / reps
-
-
-def device_ms(fn, reps: int = 20) -> float:
-    """Mean device ms of `reps` back-to-back launches of fn(), the host's
-    enqueue hidden: the card first sleeps (torch.cuda._sleep, its cycles
-    a ms measured here) for longer than the host took to queue the same
-    calls, then CUDA events time the queued calls as the card runs them."""
-    import torch
-
-    ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    ev0.record()
-    torch.cuda._sleep(10_000_000)
-    ev1.record()
-    torch.cuda.synchronize()
-    cycles_per_ms = 10_000_000 / ev0.elapsed_time(ev1)
-    fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        fn()
-    torch.cuda.synchronize()
-    host_ms = (time.perf_counter() - t0) * 1e3
-    torch.cuda._sleep(int(cycles_per_ms * (2 * host_ms + 1)))
     ev0.record()
     for _ in range(reps):
         fn()
@@ -332,6 +317,7 @@ def compare(name, prepared, canvas_u8, kinds_seen, rows):
     import torch
 
     from osm_renderer_tpu_torch.ops import render_cuda as RC
+    from osm_renderer_tpu_torch.tools.kdevice import device_ms
 
     b, canvas, ts = prepared.batch, prepared.canvas_rgb, prepared.ts
     kinds = torch.bincount(b.chunk_i[:, RC.CI_KIND].long(), minlength=10).cpu().tolist()
@@ -358,7 +344,8 @@ def compare(name, prepared, canvas_u8, kinds_seen, rows):
         f"kernel_device_ms={kernel_dev_ms:.4f} twin_ms={twin_ms:.1f} "
         f"bound_ms={bound_ms:.6f} ({bound_by}: {nbytes} B, {ops} f32 ops) "
         f"device share of bound={100 * bound_ms / kernel_dev_ms:.3f}%")
-    rows.append(dict(name=name, T=T, ts=ts, chunks=C, max_diff=max_diff, member=member,
+    rows.append(dict(name=name, T=T, ts=ts, chunks=C, kinds=kinds, max_diff=max_diff,
+                     member=member,
                      kernel_ms=kernel_ms, kernel_dev_ms=kernel_dev_ms, twin_ms=twin_ms,
                      bound_ms=bound_ms,
                      bound_by=bound_by))
@@ -382,22 +369,6 @@ def compare_arena(name, render_arena, plain_out, rows):
     rows[-1]["arena_ms"] = arena_ms
     log(f"    arena entry (rows read through the index): byte-identical, "
         f"arena_ms={arena_ms:.4f}")
-
-
-def split_prepare(renderer, tiles_entities, scale, label_layers=None):
-    """Prepared batches under MAX_BATCH_CHUNKS, halving like the server
-    -> [(prepared, its tiles_entities, its label layers)]."""
-    try:
-        return [(renderer.prepare(tiles_entities, scale, label_layers=label_layers),
-                 tiles_entities, label_layers)]
-    except ValueError as e:
-        if "MAX_BATCH_CHUNKS" not in str(e) or len(tiles_entities) == 1:
-            raise
-    mid = len(tiles_entities) // 2
-    halves = (slice(0, mid), slice(mid, None))
-    return [got for sl in halves for got in split_prepare(
-        renderer, tiles_entities[sl], scale,
-        label_layers[sl] if label_layers is not None else None)]
 
 
 def scene_prims(icon: bool):
@@ -471,48 +442,120 @@ def scene_batch(device, icon: bool):
     return PreparedBatch(b, c, 256, 1), render_arena, (241, 238, 232)
 
 
-def phase_kernel(device, styler, rows, kinds_seen, planars, kept):
-    """Render kernel vs twin and arena entry vs plain entry; the kernel's
-    planar batches go to `planars` as (name, tensor on the card), and
-    the plain-upload batch of bigcity z15 to `kept` (for phase 3b)."""
+def default_batches(city, reader):
+    """Phase 3's batches of a city: every z15 tile; on the minicity also
+    @2x, @3x and @4x batches, on the bigcity a z13+z14 batch (per-segment
+    strokes)."""
+    from osm_renderer_tpu_torch.tools.corpus import with_entities, zoom_tiles
+
+    z15 = with_entities(reader, zoom_tiles(reader, 15))
+    if city == "minicity":
+        return [(f"{city}_z15", z15, 1), (f"{city}_z15_2x", z15[:12], 2),
+                (f"{city}_z15_3x", z15[:3], 3), (f"{city}_z15_4x", z15[:2], 4)]
+    return [(f"{city}_z15", z15, 1),
+            (f"{city}_z13_z14", with_entities(reader, zoom_tiles(reader, 13)
+                                              + zoom_tiles(reader, 14)), 1)]
+
+
+def production_batches(city, reader):
+    """Phase 10 (a)'s batches: every z15 tile; on the minicity also every
+    z16 tile and the 12 middle z17 tiles @2x."""
+    from osm_renderer_tpu_torch.tools.corpus import with_entities, zoom_tiles
+
+    batches = [(f"prod_{city}_z15", with_entities(reader, zoom_tiles(reader, 15)), 1)]
+    if city == "minicity":
+        z17 = zoom_tiles(reader, 17)
+        mid = len(z17) // 2
+        batches += [(f"prod_{city}_z16", with_entities(reader, zoom_tiles(reader, 16)), 1),
+                    (f"prod_{city}_z17_2x", with_entities(reader, z17[mid - 6:mid + 6]), 2)]
+    return batches
+
+
+def bench_batches(city, reader):
+    """Phase 10 (b)'s batches: the bench's own default-stylesheet render
+    batches on the minicity, its z12-z17 pyramid, their fold and its
+    @2x batch (`osm_renderer_tpu_torch.bench`)."""
+    from osm_renderer_tpu_torch.bench import AT2X_TILES, pyramid_groups
+
+    if city != "minicity":
+        return []
+    groups = pyramid_groups(reader)
+    return ([(f"bench_{key}", group, 1) for key, group in groups.items()]
+            + [("bench_z15_2x", groups["z15"][:AT2X_TILES], 2)])
+
+
+def phase_kernel(device, style, plan, rows, kinds_seen, planars=None, arena=True,
+                 oracle=False, kept=None):
+    """Render kernel vs twin (`compare`) on the batches `plan(city,
+    reader)` names for each synthetic city, each split as the server
+    splits it -> the halvings.  Each city has its own renderers: the
+    chunk cache is keyed by tile address, and both cities cover the same
+    tiles.  arena: the arena entry against the plain entry as well
+    (`compare_arena`).  oracle: every tile but the oracle's within 1/255
+    of CpuDrawer, labels off.  The kernel's planar batches go to
+    `planars` as (name, tensor on the card), and the plain-upload batch
+    of bigcity z15 to `kept` (phase 3b)."""
+    import numpy as np
+
+    from osm_renderer_tpu_torch.draw.drawer import CpuDrawer
     from osm_renderer_tpu_torch.geodata.reader import GeodataReader
+    from osm_renderer_tpu_torch.mapcss.parser import parse_file
+    from osm_renderer_tpu_torch.mapcss.styler import Styler
     from osm_renderer_tpu_torch.ops import chunk_layout as CL
     from osm_renderer_tpu_torch.parallel.renderer import BatchRenderer
+    from osm_renderer_tpu_torch.tools.corpus import split_prepare
 
+    sdir, sheet, stype = style
+    styler = Styler(parse_file(sdir, sheet), stype)
     canvas = styler.canvas_fill_color
     canvas_u8 = (canvas.r, canvas.g, canvas.b)
-    def te(reader, tiles):
-        return [(reader.get_entities_in_tile_with_neighbors(t), t) for t in tiles]
-
-    # One renderer pair per city: the chunk cache is keyed by tile
-    # address, and both synthetic cities cover the same tiles.
+    drawer = CpuDrawer(stylesheet_dir=sdir) if oracle else None
+    halvings = 0
     for city, path in (("minicity", MINI_BIN), ("bigcity", BIG_BIN)):
         reader = GeodataReader.load(path)
-        plain_r, arena_r = (
-            BatchRenderer(styler, stylesheet_dir=STYLESHEET_DIR, chunk_cache_tiles=1024,
-                          device=str(device), arena=arena)
-            for arena in (False, True)
-        )
-        z15 = te(reader, z_tiles(reader, 15))
-        batches = [(f"{city}_z15", z15, 1)]
-        if city == "minicity":
-            batches += [(f"{city}_z15_2x", z15[:12], 2), (f"{city}_z15_3x", z15[:3], 3),
-                        (f"{city}_z15_4x", z15[:2], 4)]
-        else:
-            batches.append((f"{city}_z13_z14", te(reader, z_tiles(reader, 13)
-                                                  + z_tiles(reader, 14)), 1))
-        for name, tiles_entities, scale in batches:
-            plain = [p for p, _, _ in split_prepare(plain_r, tiles_entities, scale)]
-            arena = [p for p, _, _ in split_prepare(arena_r, tiles_entities, scale)]
-            if len(plain) != len(arena) or any(p.arena_packed is None for p in arena):
+        renderers = [BatchRenderer(styler, stylesheet_dir=sdir, chunk_cache_tiles=1024,
+                                   device=str(device), arena=a) for a in (False, True)[:1 + arena]]
+        for name, tiles_entities, scale in plan(city, reader):
+            plain, *arenas = [split_prepare(r, tiles_entities, scale) for r in renderers]
+            halvings += len(plain) - 1
+            if arenas and (len(arenas[0]) != len(plain)
+                           or any(p.arena_packed is None for p, _, _ in arenas[0])):
                 raise AssertionError(f"{name}: the arena renderer did not take the arena path")
-            for i, (p, pa) in enumerate(zip(plain, arena)):
+            worst = oracle_tiles = 0
+            for i, (p, pte, _) in enumerate(plain):
                 out = compare(f"{name}[{i}]", p, canvas_u8, kinds_seen, rows)
-                compare_arena(f"{name}[{i}]", lambda: arena_r.render_prepared_planar(pa),
-                              out, rows)
-                planars.append((f"{name}[{i}]", out))
-                if f"{name}[{i}]" == "bigcity_z15[0]":
+                if arenas:
+                    pa = arenas[0][i][0]
+                    compare_arena(f"{name}[{i}]", lambda: renderers[1].render_prepared_planar(pa),
+                                  out, rows)
+                if planars is not None:
+                    planars.append((f"{name}[{i}]", out))
+                if kept is not None and f"{name}[{i}]" == "bigcity_z15[0]":
                     kept["bigcity_z15[0]"] = p
+                if drawer is None:
+                    continue
+                rgb = CL.planar_to_rgb(out.cpu().numpy())
+                for k, (ents, t) in enumerate(pte):
+                    if k in p.cpu_fallback_tiles:
+                        oracle_tiles += 1
+                        continue
+                    want = drawer.draw_to_pixels(ents, t, scale, styler)
+                    d = int(np.abs(rgb[k].astype(int) - want.astype(int)).max())
+                    worst = max(worst, d)
+                    if d > 1:
+                        raise AssertionError(f"{name} {t}: {d}/255 off CpuDrawer")
+            log(f"  {name}: {len(tiles_entities)} tiles in {len(plain)} batch(es) "
+                f"({len(plain) - 1} halvings)" + (
+                    f"; every tile within {worst}/255 of CpuDrawer, labels off "
+                    f"({oracle_tiles} left to the oracle)" if drawer is not None else ""))
+    return halvings
+
+
+def phase_scenes(device, rows, kinds_seen, planars):
+    """Render kernel vs twin and arena entry vs plain entry on the two
+    synthetic scenes; then every chunk kind must have been seen."""
+    from osm_renderer_tpu_torch.ops import chunk_layout as CL
+
     for name, icon in (("oversize_layer_scene", False), ("icon_fill_scene", True)):
         prep, render_arena, cu8 = scene_batch(device, icon=icon)
         out = compare(name, prep, cu8, kinds_seen, rows)
@@ -527,7 +570,7 @@ def phase_kernel(device, styler, rows, kinds_seen, planars, kept):
 
 # Batches whose wires are timed (wrapper ms and device ms beside plain
 # ms and the byte bound) and cut at the edge caps.
-WIRE_TIMED = ("bigcity_z15[0]", "minicity_z15_2x[0]")
+WIRE_TIMED = ("bigcity_z15[0]", "minicity_z15_2x[0]", "prod_bigcity_z15[0]")
 
 
 def synthetic_planars(device):
@@ -733,6 +776,7 @@ def _time_wire(planar, rtot, wcap, tab):
     enqueue included), device ms (device_ms, the enqueue hidden) and the
     plain version's ms."""
     from osm_renderer_tpu_torch.ops import rle_cuda as RLE
+    from osm_renderer_tpu_torch.tools.kdevice import device_ms
 
     def v1():
         return RLE.encode_batch_wire(planar, rtot)
@@ -791,7 +835,7 @@ def _time_decode(v1, v2, rgb, ts):
                 v1_ms=v1_ms, words_per_tile=float(n_words.mean()))
 
 
-def phase_labeled(device, styler):
+def phase_labeled(device, styler, stylesheet_dir=STYLESHEET_DIR, prefix=""):
     """The labeled arena entry (render kernel, then the label slab's blit)
     on the minicity z15 batch, its @2x batch and the bigcity z15 halves,
     with label layers from the port's labeler.  Bars: (a) byte-identical
@@ -802,22 +846,24 @@ def phase_labeled(device, styler):
     import numpy as np
     import torch
 
+    from osm_renderer_tpu_torch.tools.corpus import split_prepare, zoom_tiles
     from osm_renderer_tpu_torch.geodata.reader import GeodataReader
     from osm_renderer_tpu_torch.draw.labels.labeler import Labeler
     from osm_renderer_tpu_torch.parallel import label_slab as LS
     from osm_renderer_tpu_torch.parallel.renderer import BatchRenderer
 
-    labeler = Labeler(icon_base_path=STYLESHEET_DIR, use_atlas=True, label_cache_tiles=4096)
+    labeler = Labeler(icon_base_path=stylesheet_dir, use_atlas=True, label_cache_tiles=4096)
     for city, path in (("minicity", MINI_BIN), ("bigcity", BIG_BIN)):
         reader = GeodataReader.load(path)
-        r = BatchRenderer(styler, stylesheet_dir=STYLESHEET_DIR, chunk_cache_tiles=1024,
+        r = BatchRenderer(styler, stylesheet_dir=stylesheet_dir, chunk_cache_tiles=1024,
                           device=str(device), arena=True)
-        z15 = [(reader.get_entities_in_tile_with_neighbors(t), t) for t in z_tiles(reader, 15)]
+        z15 = [(reader.get_entities_in_tile_with_neighbors(t), t) for t in zoom_tiles(reader, 15)]
         if city == "minicity":
-            batches = [(f"{city}_z15", z15, 1), (f"{city}_z15_2x", z15[:12], 2)]
+            batches = [(f"{prefix}{city}_z15", z15, 1), (f"{prefix}{city}_z15_2x", z15[:12], 2)]
         else:
             mid = len(z15) // 2
-            batches = [(f"{city}_z15_half0", z15[:mid], 1), (f"{city}_z15_half1", z15[mid:], 1)]
+            batches = [(f"{prefix}{city}_z15_half0", z15[:mid], 1),
+                       (f"{prefix}{city}_z15_half1", z15[mid:], 1)]
         for name, tiles_entities, scale in batches:
             ts = 256 * scale
             compacts = [labeler.ensure_layer(e, t, float(scale), styler, ts)
@@ -942,13 +988,14 @@ def phase_dense(device, styler, smi, out):
     import numpy as np
     import torch
 
+    from osm_renderer_tpu_torch.tools.corpus import zoom_tiles
     from osm_renderer_tpu_torch.draw.drawer import CpuDrawer
     from osm_renderer_tpu_torch.geodata.reader import GeodataReader
     from osm_renderer_tpu_torch.ops import render_dense as RD
     from osm_renderer_tpu_torch.parallel.renderer import BatchRenderer
 
     reader = GeodataReader.load(MINI_BIN)
-    z15 = [(reader.get_entities_in_tile_with_neighbors(t), t) for t in z_tiles(reader, 15)]
+    z15 = [(reader.get_entities_in_tile_with_neighbors(t), t) for t in zoom_tiles(reader, 15)]
     renderers = {p: BatchRenderer(styler, backend="dense", precision=p, device=str(device))
                  for p in ("exact", "fast")}
 
@@ -1035,9 +1082,9 @@ LAUNCHER = _NO_JAX + (
 )
 
 
-def server_conf(name, device="cuda", precision="fast", gpus=1):
+def server_conf(name, device="cuda", precision="fast", gpus=1, style=DEFAULT_STYLE):
     """An INI for the CLI on a free port, serving the minicity with
-    labels -> (path, port)."""
+    labels under `style` (directory, file, type) -> (path, port)."""
     import socket
 
     os.makedirs(OUT_DIR, exist_ok=True)
@@ -1048,14 +1095,15 @@ def server_conf(name, device="cuda", precision="fast", gpus=1):
     with open(conf, "w") as f:
         f.write(
             f"[http]\naddress = 127.0.0.1:{port}\n[geodata]\nfile = {MINI_BIN}\n"
-            f"[style]\nfile = {os.path.join(STYLESHEET_DIR, 'default.mapcss')}\ntype = josm\n"
+            f"[style]\nfile = {os.path.join(style[0], style[1])}\ntype = {style[2]}\n"
             f"[render]\nbackend = device\ndevice = {device}\nprecision = {precision}\n"
             f"gpus = {gpus}\nlabels = yes\npng-level = 1\nwarmup = yes\n"
         )
     return conf, port
 
 
-def phase_server(styler, rows_out, device="cuda", precision="fast", gpus=1):
+def phase_server(styler, rows_out, device="cuda", precision="fast", gpus=1,
+                 style=DEFAULT_STYLE):
     """renderer_main serving the minicity (labels = yes) under the import
     guard.  precision "fast": the kernels' path, >= 32 distinct tiles;
     "exact": the dense renderer, >= 16 distinct tiles, and no kernel or
@@ -1064,6 +1112,7 @@ def phase_server(styler, rows_out, device="cuda", precision="fast", gpus=1):
     import numpy as np
     from PIL import Image
 
+    from osm_renderer_tpu_torch.tools.corpus import zoom_tiles
     from osm_renderer_tpu_torch.draw.drawer import CpuDrawer
     from osm_renderer_tpu_torch.geodata.reader import GeodataReader
 
@@ -1071,17 +1120,19 @@ def phase_server(styler, rows_out, device="cuda", precision="fast", gpus=1):
     name = {"fast": "server", "exact": "server_exact"}[precision]
     if gpus > 1:
         name += f"_gpus{gpus}"
-    conf, port = server_conf(name, device, precision, gpus)
+    if style != DEFAULT_STYLE:
+        name += f"_{style[2]}"
+    conf, port = server_conf(name, device, precision, gpus, style)
     log_path = os.path.join(OUT_DIR, f"{name}.log")
     launcher = LAUNCHER
     reader = GeodataReader.load(MINI_BIN)
     from osm_renderer_tpu_torch.core.tile import Tile
 
-    z15 = z_tiles(reader, 15)
+    z15 = zoom_tiles(reader, 15)
     n15, n2x, nz = (8, 3, 2) if exact else (20, 6, 3)
     reqs = [(t, 1) for t in z15[:n15]] + [(t, 2) for t in z15[:n2x]]
     for z in (13, 14, 16, 17):
-        reqs += [(t, 1) for t in z_tiles(reader, z)[:nz]]
+        reqs += [(t, 1) for t in zoom_tiles(reader, z)[:nz]]
     reqs += [(Tile(16, z15[0].x * 2, z15[0].y * 2), 2)]
     if len(set(reqs)) < (16 if exact else 32):
         raise AssertionError(f"only {len(set(reqs))} distinct tiles to request")
@@ -1164,8 +1215,8 @@ def phase_server(styler, rows_out, device="cuda", precision="fast", gpus=1):
 
     from osm_renderer_tpu_torch.draw.labels.labeler import Labeler
 
-    labeler = Labeler(icon_base_path=STYLESHEET_DIR, use_atlas=True, label_cache_tiles=0)
-    drawer = CpuDrawer(labeler=None, stylesheet_dir=STYLESHEET_DIR)
+    labeler = Labeler(icon_base_path=style[0], use_atlas=True, label_cache_tiles=0)
+    drawer = CpuDrawer(labeler=None, stylesheet_dir=style[0])
     worst_unlabeled = worst_labeled = 0
     n_unlabeled = n_labeled = 0
     for (t, s), (status, png) in zip(reqs, got):
@@ -1210,11 +1261,12 @@ def warm_tile_ms(svc, n: int, reps: int = 5):
     caps; then the caps settle), then `reps` timed passes with every
     renderer's batch counts and the perf stats reset -> (wall ms a tile,
     {span: ms a tile}, tiles a pass)."""
+    from osm_renderer_tpu_torch.tools.corpus import zoom_tiles
     from osm_renderer_tpu_torch.core.tile import Tile
     from osm_renderer_tpu_torch.perfstats import PerfStats
 
     svc.warmup()
-    tiles = [(Tile(15, t.x, t.y), 1) for t in z_tiles(svc.reader, 15)[:n]]
+    tiles = [(Tile(15, t.x, t.y), 1) for t in zoom_tiles(svc.reader, 15)[:n]]
     svc.render_tiles_device(tiles)
     svc.render_tiles_device(tiles)
     svc.perf_stats = PerfStats()
@@ -1289,6 +1341,7 @@ def phase_multi(styler, smi, device):
     import torch
     from PIL import Image
 
+    from osm_renderer_tpu_torch.tools.corpus import zoom_tiles
     from osm_renderer_tpu_torch.geodata.reader import GeodataReader
     from osm_renderer_tpu_torch.ops import render_cuda, rle_cuda
     from osm_renderer_tpu_torch.parallel.renderer import (
@@ -1310,7 +1363,7 @@ def phase_multi(styler, smi, device):
 
     for city, path in (("minicity", MINI_BIN), ("bigcity", BIG_BIN)):
         reader = GeodataReader.load(path)
-        te = [(reader.get_entities_in_tile_with_neighbors(t), t) for t in z_tiles(reader, 15)]
+        te = [(reader.get_entities_in_tile_with_neighbors(t), t) for t in zoom_tiles(reader, 15)]
         want = BatchRenderer(styler, stylesheet_dir=STYLESHEET_DIR, device=devices[0]).render(te)
         got = MeshTileRenderer(styler, devices=devices, stylesheet_dir=STYLESHEET_DIR).render(te)
         if got.shape != want.shape or not np.array_equal(got, want):
@@ -1329,10 +1382,10 @@ def phase_multi(styler, smi, device):
         return svc
 
     one, multi = service(MINI_BIN, True, False), service(MINI_BIN, True, True)
-    z15 = z_tiles(multi.reader, 15)
+    z15 = zoom_tiles(multi.reader, 15)
     reqs = [(t, 1) for t in z15] + [(t, 2) for t in z15[:6]]
     for z in (13, 14, 16, 17):
-        reqs += [(t, 1) for t in z_tiles(multi.reader, z)[:4]]
+        reqs += [(t, 1) for t in zoom_tiles(multi.reader, z)[:4]]
     render_cuda.RENDER_KERNEL_LAUNCHES = 0
     rle_cuda.EMIT_KERNEL_LAUNCHES = 0
     rle_cuda.EXPAND_KERNEL_LAUNCHES = 0
@@ -1566,6 +1619,99 @@ def phase_tools(smi, device, phase3_dev_ms, out):
         log(f"  (d) {name} took {time.perf_counter() - t0:.1f} s ({smi})")
 
 
+def phase_production(device, smi, phase3_rows, out):
+    """Phase 10 (a): the reference's production stylesheet
+    (osmosnimki-minimal.mapcss, type mapsme) on the card.  The render
+    kernel against its twin (`phase_kernel` over `production_batches`:
+    minicity z15, z16 and z17 @2x, bigcity z15), every tile but the
+    oracle's within 1/255 of CpuDrawer, labels off; both wires against
+    their plain versions on those planar batches (`phase_wire`: bigcity
+    z15 also at the edge caps, and timed); the labeled entry against the
+    CPU blit (`phase_labeled`); renderer_main with type = mapsme held to
+    phase 5's bars (`phase_server`).  Prints the chunk-kind counts beside
+    phase 3's, the halvings, and (in the phases it calls) the slab rows,
+    the blit's ms and the raw-wire batches."""
+    from osm_renderer_tpu_torch.mapcss.parser import parse_file
+    from osm_renderer_tpu_torch.mapcss.styler import Styler
+
+    rows, planars = [], []
+    halvings = phase_kernel(device, PROD_STYLE, production_batches, rows, set(), planars,
+                            arena=False, oracle=True)
+    for name in ("minicity_z15[0]", "bigcity_z15[0]"):
+        mine = next(x for x in rows if x["name"] == f"prod_{name}")
+        theirs = next(x for x in phase3_rows if x["name"] == name)
+        log(f"  chunk kinds (0-9) {name}: default.mapcss {theirs['kinds']} ({theirs['chunks']} "
+            f"chunks), production {mine['kinds']} ({mine['chunks']} chunks)")
+    log(f"  halvings in phase 10 (a): {halvings}")
+
+    wire_rows: list = []
+    decode: dict = {}
+    out["worst"] = phase_wire(device, planars, wire_rows, decode)
+    for name, d in decode.items():
+        log(f"  host decode {name}: v2 {d['v2_ms']:.3f} ms/tile through the serving view, "
+            f"v1 {d['v1_ms']:.3f} ms/tile; {d['words_per_tile']:.0f} words/tile")
+    del planars
+    styler = Styler(parse_file(PROD_DIR, PROD_SHEET), "mapsme")
+    phase_labeled(device, styler, PROD_DIR, prefix="prod_")
+    server: dict = {}
+    phase_server(styler, server, style=PROD_STYLE)
+    out.update(rows=rows, wire_rows=wire_rows, halvings=halvings,
+               server_launches=server["launches"])
+
+
+# The port's benchmark under the import guard: `python -c BENCH_LAUNCHER`.
+BENCH_LAUNCHER = _NO_JAX + (
+    "import runpy\nsys.argv = ['bench']\n"
+    "runpy.run_module('osm_renderer_tpu_torch.bench', run_name='__main__')\n"
+)
+
+
+def phase_bench(device, smi, out):
+    """Phase 10 (b): first the render kernel against its twin
+    (`phase_kernel` over `bench_batches`) on the bench's own render
+    batches that phase 3 does not hold (its z12-z17 pyramid, their fold
+    and its @2x batch, at the bench's shapes); then
+    `python -m osm_renderer_tpu_torch.bench` in a subprocess under the
+    import guard (its stderr in build/smoke/bench.log), its JSON line
+    printed on a line of its own.  Bars: phase 3's on each batch; the
+    bench exits 0, correct true, every metric a positive number, the
+    render, emit and expand kernels launched, and the card it names the
+    one nvidia-smi named in phase 1."""
+    import math
+
+    from osm_renderer_tpu_torch.bench import metric_values
+
+    rows: list = []
+    halvings = phase_kernel(device, DEFAULT_STYLE, bench_batches, rows, set(), arena=False)
+    log(f"  the bench's {len(rows)} render batches byte-identical to the twin "
+        f"({halvings} halvings)")
+    out["rows"] = rows
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "bench.log"), "w") as errf:
+        proc = subprocess.run([sys.executable, "-c", BENCH_LAUNCHER], cwd=ROOT,
+                              stdout=subprocess.PIPE, stderr=errf, text=True, timeout=600)
+    lines = proc.stdout.strip().splitlines()
+    if not lines:
+        raise AssertionError(f"the bench exited {proc.returncode} and printed nothing")
+    line = json.loads(lines[-1])
+    print(json.dumps(line), flush=True)
+    bad = [k for k, v in metric_values(line).items()
+           if isinstance(v, bool) or not isinstance(v, (int, float)) or not math.isfinite(v)
+           or v <= 0]
+    launches = line["detail"].get("kernel_launches", {})
+    name = smi.rsplit(",", 1)[0].strip()
+    if (proc.returncode != 0 or line["correct"] is not True or bad
+            or line["device"].get("name") != name or len(launches) != 3
+            or min(launches.values()) <= 0):
+        raise AssertionError(f"the bench exited {proc.returncode}, correct "
+                             f"{line['correct']}, metrics not positive {bad}, device "
+                             f"{line['device']} (phase 1: {name!r}), launches {launches}; "
+                             f"error {line['detail'].get('error')}")
+    out.update(launches=launches, line=line)
+    log(f"  the bench exited 0, correct, every metric positive, on {line['device']['name']} "
+        f"at {line['device']['power_limit']}; kernel launches {launches}")
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "osm_renderer_tpu_torch")):
         return fail("run from a checkout of the repository (osm_renderer_tpu_torch/ missing)")
@@ -1624,7 +1770,8 @@ def main() -> int:
     kinds_seen: set = set()
     planars: list = []
     kept: dict = {}
-    phase_kernel(device, styler, rows, kinds_seen, planars, kept)
+    phase_kernel(device, DEFAULT_STYLE, default_batches, rows, kinds_seen, planars, kept=kept)
+    phase_scenes(device, rows, kinds_seen, planars)
 
     log("phase 3b: the render kernel's device ms by chunk kind on bigcity z15 "
         "(tools/kdecomp_device; bars: full byte-identical, within 10 % of phase 3)")
@@ -1686,6 +1833,23 @@ def main() -> int:
     phase_tools(smi, device, big["kernel_dev_ms"], tools_out)
     log(f"  phase 9 took {time.perf_counter() - t0:.1f} s ({smi})")
 
+    log("phase 10: the production stylesheet (osmosnimki-minimal, mapsme) and the bench "
+        "(bars: (a) the render kernel and both wires equal their plain versions, tiles within "
+        "1/255 of CpuDrawer, the labeled entry equals the CPU blit, renderer_main with type = "
+        "mapsme holds phase 5's bars; (b) the render kernel equals its twin on the bench's "
+        "batches, the bench exits 0, correct, every metric positive)")
+    t0 = time.perf_counter()
+    prod: dict = {}
+    phase_production(device, smi, rows, prod)
+    log(f"  phase 10 (a) took {time.perf_counter() - t0:.1f} s ({smi})")
+    t0 = time.perf_counter()
+    bench_out: dict = {}
+    phase_bench(device, smi, bench_out)
+    log(f"  phase 10 (b) took {time.perf_counter() - t0:.1f} s ({smi})")
+    log(f"  kernel launches by main path: sweep (phase 9 (a)) {tools_out['sweep_launches']}; "
+        f"renderer_main mapsme (phase 10 (a)) {prod['server_launches']}; bench (phase 10 (b)) "
+        f"{bench_out['launches']}")
+
     log("phase 7: no jax, no fontTools, no osm_renderer_tpu")
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in REFUSED)
     if loaded:
@@ -1695,17 +1859,19 @@ def main() -> int:
     head = next(r for r in rows if r["name"] == "bigcity_z15[0]")
     wire_head = next(r for r in wire_rows if r["name"] == "bigcity_z15[0]")
     measured = {
-        "render_planar": (max(r["max_diff"] for r in rows), head["kernel_dev_ms"],
+        "render_planar": (max(r["max_diff"] for r in rows + prod["rows"] + bench_out["rows"]),
+                          head["kernel_dev_ms"],
                           head["twin_ms"], head["bound_ms"], head["bound_by"]),
-        "rle_emit": (worst["rle_emit"], wire_head["v1_dev_ms"], wire_head["v1_plain_ms"],
-                     wire_head["v1_bound_ms"], "bytes"),
-        "rle_expand": (worst["rle_expand"], wire_head["v2_dev_ms"], wire_head["v2_plain_ms"],
+        "rle_emit": (max(worst["rle_emit"], prod["worst"]["rle_emit"]), wire_head["v1_dev_ms"],
+                     wire_head["v1_plain_ms"], wire_head["v1_bound_ms"], "bytes"),
+        "rle_expand": (max(worst["rle_expand"], prod["worst"]["rle_expand"]),
+                       wire_head["v2_dev_ms"], wire_head["v2_plain_ms"],
                        wire_head["v2_bound_ms"], "bytes"),
     }
-    # Launches in this slice's main path: phase 9 (a)'s sweep.
-    sweep = tools_out["sweep_launches"]
-    launches = {"render_planar": sweep["render"], "rle_emit": sweep["emit"],
-                "rle_expand": sweep["expand"]}
+    # Launches in this slice's main path: the bench's (phase 10 (b)).
+    ran = bench_out["launches"]
+    launches = {"render_planar": ran["render"], "rle_emit": ran["emit"],
+                "rle_expand": ran["expand"]}
     kernels = {"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,
          "launches": launches[name], "max_abs_err": measured[name][0],

@@ -4,7 +4,9 @@ Counterpart of `tools/kdevice.py`.  A loop of launches timed on the
 host folds the host's enqueue and synchronisation into every number;
 this runs a call `reps` times under `torch.profiler` and sums, per call,
 the device time of the named kernels only (`render_kernel` of
-`csrc/render.cu`, `wire_kernel` of `csrc/rle.cu`).  The command line
+`csrc/render.cu`, `wire_kernel` of `csrc/rle.cu`).  `device_ms` times
+a call's whole device work with CUDA events instead, the host's enqueue
+hidden behind a sleep on the card.  The command line
 times the z15 batch of a city through the arena entry, then the v2 wire
 behind it:
 
@@ -22,6 +24,7 @@ from __future__ import annotations
 import argparse
 import os
 import sys
+import time
 from typing import Callable, Dict, Sequence
 
 import torch
@@ -86,6 +89,35 @@ def device_ms_per_call(fn: Callable[[], object], reps: int,
                        f"{list(kernel_names)}: {counts} (device events: {sorted(seen)[:8]})")
 
 
+def device_ms(fn: Callable[[], object], reps: int = 20) -> float:
+    """Mean device ms of `reps` back-to-back calls of fn() on the current
+    CUDA device, the host's enqueue hidden: the card first sleeps
+    (torch.cuda._sleep, its cycles a ms measured here) for longer than
+    the host took to queue the same calls, then CUDA events time the
+    queued calls as the card runs them."""
+    ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    ev0.record()
+    torch.cuda._sleep(10_000_000)
+    ev1.record()
+    torch.cuda.synchronize()
+    cycles_per_ms = 10_000_000 / ev0.elapsed_time(ev1)
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda._sleep(int(cycles_per_ms * (2 * host_ms + 1)))
+    ev0.record()
+    for _ in range(reps):
+        fn()
+    ev1.record()
+    torch.cuda.synchronize()
+    return ev0.elapsed_time(ev1) / reps
+
+
 def device_name(device: torch.device) -> str:
     """The card's name, or "cpu"."""
     return torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
@@ -94,17 +126,14 @@ def device_name(device: torch.device) -> str:
 def zoom_tiles_entities(geodata: str, zoom: int):
     """Every tile of `zoom` the geodata covers, with its entities, and
     the default stylesheet's styler -> (tiles_entities, styler)."""
-    from osm_renderer_tpu_torch.core.tile import Tile
     from osm_renderer_tpu_torch.geodata.reader import GeodataReader
     from osm_renderer_tpu_torch.mapcss.parser import parse_file
     from osm_renderer_tpu_torch.mapcss.styler import Styler
+    from osm_renderer_tpu_torch.tools.corpus import with_entities, zoom_tiles
 
     reader = GeodataReader.load(geodata)
     styler = Styler(parse_file(STYLESHEET_DIR, "default.mapcss"), "josm")
-    sh = 18 - zoom
-    zt = sorted(set(zip((reader.tiles["x"] >> sh).tolist(), (reader.tiles["y"] >> sh).tolist())))
-    tiles = [Tile(zoom, x, y) for x, y in zt]
-    return [(reader.get_entities_in_tile_with_neighbors(t), t) for t in tiles], styler
+    return with_entities(reader, zoom_tiles(reader, zoom)), styler
 
 
 def parse_args(argv, description: str) -> argparse.Namespace:

@@ -30,19 +30,11 @@ BATCH = 16
 def render_split(dev, te, scale: int):
     """[(rendered (T, ts, ts, 3) u8, cpu_fallback_tiles)] in order, a
     batch at a time, halving a batch over MAX_BATCH_CHUNKS."""
+    from osm_renderer_tpu_torch.tools.corpus import split_prepare
+
     out = []
     for s in range(0, len(te), BATCH):
-        todo = [te[s: s + BATCH]]
-        while todo:
-            part = todo.pop(0)
-            try:
-                prepared = dev.prepare(part, scale)
-            except ValueError as e:
-                if "MAX_BATCH_CHUNKS" not in str(e) or len(part) == 1:
-                    raise
-                mid = len(part) // 2
-                todo[:0] = [part[:mid], part[mid:]]
-                continue
+        for prepared, part, _ in split_prepare(dev, te[s: s + BATCH], scale):
             got = dev.render_prepared(prepared).cpu().numpy()
             out.append((got[: len(part)], set(prepared.cpu_fallback_tiles)))
     return out
@@ -66,6 +58,7 @@ def main(argv=None) -> int:
     from osm_renderer_tpu_torch.mapcss.parser import parse_file
     from osm_renderer_tpu_torch.mapcss.styler import Styler
     from osm_renderer_tpu_torch.parallel.renderer import BatchRenderer
+    from osm_renderer_tpu_torch.tools.corpus import zoom_tiles
     from osm_renderer_tpu_torch.tools.kdevice import device_name
     from osm_renderer_tpu_torch.utils.torch_setup import resolve_device
 
@@ -77,10 +70,7 @@ def main(argv=None) -> int:
     dev = BatchRenderer(styler, stylesheet_dir=base, device=device)
 
     if args.all_z is not None:
-        shift = 18 - args.all_z
-        tx = reader.tiles["x"] >> shift
-        ty = reader.tiles["y"] >> shift
-        tiles = [Tile(args.all_z, x, y) for x, y in sorted(set(zip(tx.tolist(), ty.tolist())))]
+        tiles = zoom_tiles(reader, args.all_z)
     elif len(args.zxy) == 3:
         tiles = [Tile(args.zxy[0], args.zxy[1], args.zxy[2])]
     else:

@@ -42,7 +42,6 @@ from __future__ import annotations
 import argparse
 import os
 import random
-import subprocess
 import sys
 import time
 from typing import Dict, List, Tuple
@@ -61,20 +60,14 @@ PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 def ensure_fixture(blocks: int) -> str:
     """The city of `blocks` blocks a side, generated and imported on
     first use -> path of its .bin."""
-    from osm_renderer_tpu_torch.geodata.importer import import_osm
+    from osm_renderer_tpu_torch.tools.corpus import build_fixture
 
     osm = os.path.join(FIXTURE_DIR, f"hugecity{blocks}.osm")
     binf = osm[:-4] + ".bin"
     if not os.path.exists(binf):
-        if not os.path.exists(osm):
-            os.makedirs(FIXTURE_DIR, exist_ok=True)
-            t0 = time.perf_counter()
-            subprocess.run([sys.executable, os.path.join(REPO_ROOT, "tools", "make_fixture.py"),
-                            osm, "--blocks", str(blocks)], check=True, stdout=subprocess.DEVNULL)
-            print(f"fixture gen: {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
-        import_osm(osm, binf)
-        print(f"import: {time.perf_counter() - t0:.1f} s")
+        build_fixture(osm, binf, blocks)
+        print(f"fixture gen and import: {time.perf_counter() - t0:.1f} s")
     return binf
 
 
@@ -83,18 +76,16 @@ def sweep_corpus(reader) -> Tuple[List[object], Dict[int, int]]:
     for z12-z17 every tile the geodata covers, sorted, and for a capped
     zoom every `len // cap`-th of them up to the cap -> (tiles, tiles a
     zoom)."""
-    from osm_renderer_tpu_torch.core.tile import Tile
+    from osm_renderer_tpu_torch.tools.corpus import zoom_tiles
 
     tiles, per_zoom = [], {}
     for zoom in (12, 13, 14, 15, 16, 17):
-        sh = 18 - zoom
-        zt = sorted(set(zip((reader.tiles["x"] >> sh).tolist(),
-                            (reader.tiles["y"] >> sh).tolist())))
+        zt = zoom_tiles(reader, zoom)
         cap = ZOOM_CAPS.get(zoom)
         if cap and len(zt) > cap:
             zt = zt[:: len(zt) // cap][:cap]
         per_zoom[zoom] = len(zt)
-        tiles += [Tile(zoom, x, y) for x, y in zt]
+        tiles += zt
     return tiles, per_zoom
 
 

@@ -45,11 +45,11 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda", help="cuda, cuda:N, or cpu (the plain versions)")
     args = ap.parse_args(argv)
 
-    from osm_renderer_tpu_torch.core.tile import Tile
     from osm_renderer_tpu_torch.geodata.reader import GeodataReader
     from osm_renderer_tpu_torch.mapcss.parser import parse_file
     from osm_renderer_tpu_torch.mapcss.styler import Styler
     from osm_renderer_tpu_torch.parallel.renderer import BatchRenderer, start_wire_copy
+    from osm_renderer_tpu_torch.tools.corpus import zoom_tiles
     from osm_renderer_tpu_torch.utils.torch_setup import build_native_host_libs, resolve_device
 
     device = resolve_device(args.device)
@@ -84,12 +84,9 @@ def main(argv=None) -> int:
 
     for scale in scales:
         for zoom in zooms:
-            shift = 18 - zoom
-            tx = reader.tiles["x"] >> shift
-            ty = reader.tiles["y"] >> shift
-            coords = sorted(set(zip(tx.tolist(), ty.tolist())))
+            zt = zoom_tiles(reader, zoom)
             for bucket in buckets:
-                tiles = [Tile(zoom, x, y) for x, y in coords[:bucket]]
+                tiles = zt[:bucket]
                 if not tiles:
                     continue
                 te = [(reader.get_entities_in_tile_with_neighbors(t), t) for t in tiles]

@@ -9,10 +9,12 @@ exact: the importers write byte-identical .bin files (through the
 importer CLIs from the .osm, and from a .pbf each package's writer
 encodes); the readers return the same entities for every z15 tile; the
 stylers give equal styles for every entity of those tiles
-(default.mapcss, josm); `assemble_tile_prims` gives equal primitives;
-`CpuDrawer` gives byte-identical pixels at @1x and @2x, labels
-included; `rgb_to_png` gives equal bytes (native encoder and zlib);
-`labelable` gives equal waypoints and label positions; the perfstats
+(default.mapcss, josm; and the reference's production stylesheet,
+osmosnimki-minimal.mapcss, mapsme, in the `_production` tests);
+`assemble_tile_prims` gives equal primitives; `CpuDrawer` gives
+byte-identical pixels at @1x and @2x, labels included; `rgb_to_png`
+gives equal bytes (native encoder and zlib); `labelable` gives equal
+waypoints and label positions; the perfstats
 span trees of the drawer runs are equal; `build_batch` stacks equal
 arrays from both packages' streams.  No file of the port imports
 the JAX package.
@@ -51,8 +53,14 @@ from osm_renderer_tpu_torch.geodata import pbf
 from osm_renderer_tpu_torch.geodata.importer import import_osm, parse_osm_xml
 from osm_renderer_tpu_torch.geodata.reader import GeodataReader
 
+from osm_renderer_tpu_torch.mapcss.parser import parse_file
+from osm_renderer_tpu_torch.mapcss.styler import Styler
+
 from tests.conftest import REPO_ROOT
 from tests.test_torch_helpers import STYLESHEET_DIR, make_minicity_osm, port_styler, write_osm
+
+PROD_DIR = os.path.join(REPO_ROOT, "tests", "fixtures", "mapcss")
+PROD_SHEET = "osmosnimki-minimal.mapcss"
 
 
 @pytest.fixture(scope="module")
@@ -74,7 +82,17 @@ def city(tmp_path_factory):
         stylers=(JaxStyler(jax_parse_file(STYLESHEET_DIR, "default.mapcss"), "josm"),
                  port_styler()),
         tiles=[(JaxTile(15, x, y), Tile(15, x, y)) for x, y in xy],
+        sheet_dir=STYLESHEET_DIR,
     )
+
+
+@pytest.fixture(scope="module")
+def prod_city(city):
+    """The same city under the production stylesheet (mapsme): the
+    dash caps, casing widths and canvas fill of the MAPS.ME type."""
+    return dict(city, sheet_dir=PROD_DIR,
+                stylers=(JaxStyler(jax_parse_file(PROD_DIR, PROD_SHEET), "mapsme"),
+                         Styler(parse_file(PROD_DIR, PROD_SHEET), "mapsme")))
 
 
 def _entities(city, i):
@@ -158,6 +176,15 @@ def test_reader_entities_equal(city):
 
 def test_styles_equal(city):
     """style_entities (paint and label order) and style_areas."""
+    _styles_equal(city)
+
+
+def test_styles_equal_production(prod_city):
+    assert not prod_city["stylers"][1].use_caps_for_dashes
+    _styles_equal(prod_city)
+
+
+def _styles_equal(city):
     jstyler, pstyler = city["stylers"]
     n = 0
     for jents, pents, jt, t in _entities(city, None):
@@ -177,6 +204,15 @@ def test_styles_equal(city):
 
 @pytest.mark.parametrize("scale", [1, 2])
 def test_assemble_tile_prims_equal(city, scale):
+    _assemble_equal(city, scale)
+
+
+@pytest.mark.parametrize("scale", [1, 2])
+def test_assemble_tile_prims_equal_production(prod_city, scale):
+    _assemble_equal(prod_city, scale)
+
+
+def _assemble_equal(city, scale):
     jstyler, pstyler = city["stylers"]
     n = 0
     for jents, pents, jt, t in _entities(city, None):
@@ -192,10 +228,11 @@ def _draw_both(city, scale, labels, tiles):
     given z15 tiles, each run inside its own perfstats tile run ->
     [(JAX pixels, port pixels)], (JAX stats, port stats)."""
     jstyler, pstyler = city["stylers"]
-    jd = JaxCpuDrawer(labeler=JaxLabeler(icon_base_path=STYLESHEET_DIR, use_atlas=False)
-                      if labels else None, stylesheet_dir=STYLESHEET_DIR)
-    pd = CpuDrawer(labeler=Labeler(icon_base_path=STYLESHEET_DIR, use_atlas=False)
-                   if labels else None, stylesheet_dir=STYLESHEET_DIR)
+    sheet_dir = city["sheet_dir"]
+    jd = JaxCpuDrawer(labeler=JaxLabeler(icon_base_path=sheet_dir, use_atlas=False)
+                      if labels else None, stylesheet_dir=sheet_dir)
+    pd = CpuDrawer(labeler=Labeler(icon_base_path=sheet_dir, use_atlas=False)
+                   if labels else None, stylesheet_dir=sheet_dir)
     stats = (jax_perfstats.PerfStats(), perfstats.PerfStats())
     out = []
     for i in tiles:
@@ -253,6 +290,18 @@ def test_cpu_drawer_pixels_identical(city, scale):
         assert got.tobytes() == want.tobytes()
 
 
+@pytest.mark.parametrize("scale", [1, 2])
+def test_cpu_drawer_pixels_identical_production(prod_city, scale):
+    """Dashes with butt caps, mapsme casings and the canvas fill, with the
+    production labels, on every sixth z15 tile."""
+    tiles = [i for i in range(0, len(prod_city["tiles"]), 6)]
+    pairs, _ = _draw_both(prod_city, scale, True, tiles)
+    assert len(pairs) >= 5
+    for want, got in pairs:
+        assert got.shape == want.shape == (256 * scale, 256 * scale, 3)
+        assert got.tobytes() == want.tobytes()
+
+
 def _tree(node):
     return (node.name, tuple(sorted((k, _tree(v)) for k, v in node.children.items())))
 
@@ -293,6 +342,28 @@ def test_labelable_equal(city):
     assert n > 100
 
 
+def test_labelable_equal_production(prod_city):
+    """Label positions and waypoints of the entities the production
+    stylesheet labels at z15 (style_entities for labels)."""
+    jstyler, pstyler = prod_city["stylers"]
+    n = 0
+    for jents, pents, jt, t in _entities(prod_city, None)[::4]:
+        want = [(e, s) for e, s in jstyler.style_entities(_all(jents), jt.zoom, True)
+                if s.text_style is not None]
+        got = [(e, s) for e, s in pstyler.style_entities(_all(pents), t.zoom, True)
+               if s.text_style is not None]
+        assert [e.global_id for e, _ in got] == [e.global_id for e, _ in want]
+        for (je, _), (pe, _) in zip(want, got):
+            for scale in (1.0, 2.0):
+                assert _plain(labelable.get_label_position(pe, t, scale)) == \
+                    _plain(jax_labelable.get_label_position(je, jt, scale))
+                if type(pe).__name__ != "Node":
+                    assert _plain(labelable.get_waypoints(pe, t, scale)) == \
+                        _plain(jax_labelable.get_waypoints(je, jt, scale))
+            n += 1
+    assert n > 20
+
+
 def _port_files():
     root = os.path.join(REPO_ROOT, "osm_renderer_tpu_torch")
     files = [os.path.join(REPO_ROOT, "chip_smoke.py")]
@@ -323,4 +394,5 @@ def test_no_port_file_imports_the_jax_package():
     assert {os.path.join(tools, f"{name}.py") for name in (
         "kdevice", "kdecomp_device", "scale_sweep", "parity_check", "warmup", "profile_serving",
         "cold_profile", "ktime", "kdecomp")} <= set(files)
+    assert os.path.join(REPO_ROOT, "osm_renderer_tpu_torch", "bench.py") in files
     assert not bad, bad
