@@ -6,8 +6,9 @@
 Phases (any failure exits non-zero; no phase is skipped):
 
 1. Card and toolchain: nvidia-smi name and power limit, torch and CUDA
-   versions; both kernel sources (csrc/render.cu, csrc/rle.cu) built by
-   nvcc at once, with build times and ptxas reports.
+   versions; the three kernel sources (csrc/render.cu, csrc/rle.cu,
+   csrc/dense.cu) built by nvcc at once, with build times and ptxas
+   reports.
 2. Fixtures: the synthetic cities (tools/make_fixture.py --blocks 24 and
    48, then the port's geodata.importer.import_osm) under
    assets/fixtures/.
@@ -57,14 +58,25 @@ Phases (any failure exits non-zero; no phase is skipped):
    alpha = 1 label cores and every pixel outside a layer's bbox
    byte-identical to it.  Labeled-entry ms beside unlabeled-entry ms
    and the blit's own ms, slab rows and bytes.
-4c. The dense renderer (ops/render_dense.py, `precision = exact` and
-   its fast twin): (a) CUDA byte-identical to the same function on the
-   CPU, both precisions, on 4 minicity z15 tiles, 2 @2x tiles, the
-   oversize-coordinate scene and the icon-fill scene; (b) CUDA exact on
-   every minicity z15 tile within 1/255 of CpuDrawer, < 1 % of values
-   off; (c) the 30-tile batch's ms (CUDA events) by phase (alphas,
-   blends), its device operations (torch.profiler) and peak memory, and
-   the CPU ms of the 4-tile batch.
+4c. The dense renderer of `precision = exact` and its fast twin: its
+   three kernels (csrc/dense.cu: dense_stroke_alpha, dense_fill_alpha,
+   dense_blend_finalize, via ops/dense_cuda.py) against the plain
+   version (ops/render_dense.py::render_batch_plain).  (a) In both
+   precisions, on the oversize-coordinate, icon-fill (walk chain off)
+   and large-fill (a 1024-lane edge bucket: the fill kernel's global
+   scratch) scenes, 4 minicity z15 tiles and 2 at @2x, all 30 minicity
+   z15 tiles and 12 at @2x, the first 16 and all 97 bigcity z15 tiles
+   and the production stylesheet's 30 minicity z15 tiles (chain printed
+   for each): the kernels byte-identical to the plain version on the
+   card and, but for minicity x30, @2x x12 and bigcity x97 (the CPU
+   takes ~0.3-1.3 s a tile), on the CPU, and each kernel to its plain
+   function on the card; (b) the
+   kernels' exact minicity z15 tiles within 1/255 of CpuDrawer, < 1 % of
+   values off; (c) on minicity z15 x30, its 12 tiles @2x and bigcity
+   z15 x97, both precisions: each kernel's device ms (enqueue hidden)
+   beside its bound (`dense_bounds`) and its plain function's ms; the
+   batch's ms through the kernels and through the plain version, its
+   device operations (torch.profiler) and peak memory, each way.
 5. The served path: `python -m osm_renderer_tpu_torch.cli.renderer_main`
    with backend = device, device = cuda, labels = yes on the minicity,
    under the import guard of phase 7; >= 32 distinct
@@ -74,9 +86,12 @@ Phases (any failure exits non-zero; no phase is skipped):
    host composite; while serving, the server launched the render, emit
    and expand kernels, served at least one arena batch and one v2 wire
    batch, and labeled at least one tile on the device.
-5b. The same server with precision = exact (labels = yes): >= 16
-   distinct tiles (z13-z17, @1x and @2x), the same bars, only dense
-   batches and no kernel launch while serving.
+5b. The same server with precision = exact (labels = yes), the dense
+   kernels' main path: >= 16 distinct tiles (z13-z17, @1x and @2x), the
+   same bars, only dense batches, no launch of the render, emit or
+   expand kernels, and every dense kernel launched while serving (the
+   server's `dense kernel launches` lines); its tiles/s printed.  (The
+   fast servers of phases 5, 8 and 10 launch no dense kernel.)
 6. Warm served path in this process (PNG cache off): per-tile spans of
    warm minicity z15 and bigcity z15 batches with labels off, and of
    minicity z15 with labels on.
@@ -146,9 +161,11 @@ Phases (any failure exits non-zero; no phase is skipped):
 
 The second-to-last line is the kernels JSON object (each kernel's "ms"
 is its device ms on the bigcity z15 batch: the render kernel's, the v1
-wire's for rle_emit, the whole v2 wire's for rle_expand; "max_abs_err"
-covers phases 3, 4 and 10, the bench's render batches among them;
-"launches" are phase 10 (b)'s, the bench's;
+wire's for rle_emit, the whole v2 wire's for rle_expand, each dense
+kernel's in the exact precision; "max_abs_err" covers phases 3, 4 and
+10, the bench's render batches among them, and phase 4c for the dense
+kernels; "launches" are phase 10 (b)'s, the bench's, and for the dense
+kernels phase 5b's, the exact server's;
 the sweep's and the mapsme server's are printed in phase 10), the last
 line
 {"ok": true, "device": {...}}.  Without a CUDA device, or outside a
@@ -187,6 +204,19 @@ KERNELS = {
                  "osm_renderer_tpu/ops/rle_pallas.py:56"),
     "rle_expand": ("osm_renderer_tpu_torch/csrc/rle.cu",
                    "osm_renderer_tpu/ops/rle_pallas.py:312"),
+}
+
+# The dense kernels of `precision = exact` (phase 4c, served in phase 5b):
+# name -> (source, the function of the JAX package's jitted exact
+# program, render_jnp.render_batch, whose work it does; that program
+# reaches no Pallas kernel).
+DENSE_KERNELS = {
+    "dense_stroke_alpha": ("osm_renderer_tpu_torch/csrc/dense.cu",
+                           "osm_renderer_tpu/ops/render_jnp.py:158"),
+    "dense_fill_alpha": ("osm_renderer_tpu_torch/csrc/dense.cu",
+                         "osm_renderer_tpu/ops/render_jnp.py:308"),
+    "dense_blend_finalize": ("osm_renderer_tpu_torch/csrc/dense.cu",
+                             "osm_renderer_tpu/ops/render_jnp.py:402"),
 }
 
 # Top-level packages the port must not load: jax, the JAX package
@@ -922,27 +952,43 @@ def phase_labeled(device, styler, stylesheet_dir=STYLESHEET_DIR, prefix=""):
                     f"of cap {slab.cap} ({slab.plane.numel() * slab.plane.element_size()} bytes)")
 
 
-def _dense_scene(device, icon: bool, precision: str):
-    """A synthetic scene as a dense batch on `device` -> (TileBatch, canvas,
-    ts, chunk, chain, plan)."""
+def _dense_scene(device, scene: str, precision: str):
+    """A synthetic one-tile scene as a dense batch on `device` -> (TileBatch,
+    canvas, ts, chunk, chain, plan).  scene: "oversize" (coordinates past
+    the fast bound), "icon" (kind 5 fills) or "large_fill" (one fill of
+    700 edges: a 1024-lane edge bucket, past the fill kernel's shared
+    memory, so its active lists live in global scratch)."""
     import numpy as np
     import torch
 
     from osm_renderer_tpu_torch.draw import primitives as P
     from osm_renderer_tpu_torch.ops import render_dense as RD
 
-    prims, icon_cache = scene_prims(icon)
+    chunk, icon_cache = 64, None
+    if scene == "large_fill":
+        ang = np.linspace(0, 2 * np.pi, 700, endpoint=False)
+        r = 100 + 20 * np.sin(37 * ang)
+        pts = np.stack([np.round(128 + r * np.cos(ang)), np.round(128 + r * np.sin(ang))], 1)
+        pts = np.concatenate([pts, pts[:1]]).astype(np.int64)
+        prims, chunk = [P.FillPrim(kind="fill", color=(20, 80, 160), opacity=0.9,
+                                   edges=np.concatenate([pts[:-1], pts[1:]], 1))], 1024
+    else:
+        prims, icon_cache = scene_prims(scene == "icon")
     dtype = np.float64 if precision == "exact" else np.float32
     profiles, patterns = P.ProfileTable(), P.PatternTable(icon_cache, 256)
-    stream = P.stream_tile(prims, profiles, 64, patterns)
-    arrays = P.build_batch([stream], profiles, 64, dtype=dtype, patterns=patterns, ts=256)
+    stream = P.stream_tile(prims, profiles, chunk, patterns)
+    arrays = P.build_batch([stream], profiles, chunk, dtype=dtype, patterns=patterns, ts=256)
     kinds = set(arrays.chunk_kind.ravel().tolist())
-    if (RD.KIND_FILL_IMAGE not in kinds) if icon else (np.abs(arrays.geom).max() < 1 << 14):
-        raise AssertionError(f"dense scene (icon={icon}) lacks what it is for: kinds "
-                             f"{sorted(kinds)}, max |coord| {np.abs(arrays.geom).max()}")
+    lacks = {"icon": RD.KIND_FILL_IMAGE not in kinds,
+             "oversize": np.abs(arrays.geom).max() < 1 << 14,
+             "large_fill": arrays.chunk_cnt.max() < 700}[scene]
+    if lacks:
+        raise AssertionError(f"dense scene {scene} lacks what it is for: kinds "
+                             f"{sorted(kinds)}, max |coord| {np.abs(arrays.geom).max()}, "
+                             f"max edges {arrays.chunk_cnt.max()}")
     canvas = torch.from_numpy(np.array([241, 238, 232], dtype) / 255.0).to(device)
-    plan = RD.plan_batch(arrays, 256, 64, precision, RD.PIXEL_BUDGET["cuda"])
-    return (RD.TileBatch.from_numpy(arrays, device), canvas, 256, 64,
+    plan = RD.plan_batch(arrays, 256, chunk, precision, RD.PIXEL_BUDGET["cuda"])
+    return (RD.TileBatch.from_numpy(arrays, device), canvas, 256, chunk,
             profiles.has_round_caps(), plan)
 
 
@@ -962,112 +1008,272 @@ def _event_ms(fn, reps: int = 3) -> float:
     return ev0.elapsed_time(ev1) / reps
 
 
-def _device_launches(fn) -> int:
+def _device_launches(fn, reps: int = 1) -> int:
     """Device operations (kernels, copies, memsets) one call of fn() ran,
-    counted by torch.profiler; -1 when the profiler saw none."""
+    counted by torch.profiler over `reps` calls; -1 when no trace held a
+    whole multiple of `reps`."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    # A trace can miss launches after other device work (as
+    # tools/kdevice.py found): one thrown-away trace, then up to three.
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
         fn()
         torch.cuda.synchronize()
-    n = sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
-    return n if n else -1
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        n = sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
+        if n and n % reps == 0:
+            return n // reps
+    return -1
+
+
+def _peak_bytes(fn) -> int:
+    """Device memory fn() allocated at its peak, above what was live."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    fn()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() - base
+
+
+# The card's f64 rate outside the tensor cores (NVIDIA H100 SXM data
+# sheet), for the dense kernels' exact precision.
+F64_OPS_PER_S = 34e12
+
+
+def dense_bounds(batch, plan, pack, stroke_pend, fill_pend) -> dict:
+    """Least time the card could take for each dense kernel on this batch
+    -> {kernel: (ms, "bytes" or "operations")}.
+
+    Bytes: each input read once (the packed items, the segments, edges,
+    profiles, colours and pending values they read) and each output
+    written once (the pending values an alpha kernel leaves above zero,
+    the u8 tiles).  Operations: the float operations every stroke window
+    pixel runs before its first early exit (the centre and start
+    distances and `_stroke_opacity`: 32 + 7 DS in f64, 24 + 7 DS in f32),
+    the blends (12 a window pixel) and the finalize (7 a pixel), over the
+    f64 rate (exact) or the f32 rate (fast).  Integer work (the int64
+    divisions of the band and chain rules) is not counted, so the bound
+    is lower than any kernel could reach."""
+    exact = pack.precision == "exact"
+    fsz, rate = (8, F64_OPS_PER_S) if exact else (4, F32_OPS_PER_S)
+    ds = batch.profiles.shape[1]
+    ns, nf, ng, T, ts = pack.n_strokes, pack.n_fills, pack.n_groups, pack.n_tiles, pack.ts
+    n_prof = batch.profiles.shape[0]
+    stroke_bytes = (ns * (9 + 1) * 8 + ns * (16 + fsz + 4 + 2 * fsz)
+                    + n_prof * (ds * 8 + 1) * fsz + int((stroke_pend > 0).sum()) * fsz)
+    stroke_ops = pack.stroke_px * ((32 if exact else 24) + 7 * ds)
+    edges = int(sum(int(items[:, 3].sum()) for _, items, _ in plan.fills))
+    fill_bytes = nf * (11 + 1) * 8 + edges * 16 + nf * fsz + int((fill_pend > 0).sum()) * fsz
+    blend_bytes = (pack.pending_size * fsz + ng * (7 * 8 + 3 * fsz + 4) + (T + 1) * 8
+                   + T * ts * ts * 3)
+    blend_ops = pack.pending_size * 12 + T * ts * ts * 7
+    out = {}
+    for name, nbytes, ops in (("dense_stroke_alpha", stroke_bytes, stroke_ops),
+                              ("dense_fill_alpha", fill_bytes, 0),
+                              ("dense_blend_finalize", blend_bytes, blend_ops)):
+        b_ms, o_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / rate * 1e3
+        out[name] = (max(b_ms, o_ms), "operations" if o_ms > b_ms else "bytes")
+    return out
 
 
 def phase_dense(device, styler, smi, out):
-    """The dense renderer (ops/render_dense.py) on the card.  (a) CUDA
-    against the same function on the CPU, byte-identical, in both
-    precisions: 4 minicity z15 tiles, 2 of them at @2x, the
-    oversize-coordinate scene and the icon-fill scene.  (b) CUDA exact on
-    every minicity z15 tile against CpuDrawer: max |diff| <= 1 with < 1 %
-    of pixels off.  (c) The 30-tile batch's ms (CUDA events) split into
-    phase 1 (alphas) and phase 2 (blends), its device operations from
-    torch.profiler and its peak memory, in both precisions; the CPU ms of
-    the 4-tile batch."""
+    """The dense renderer of `precision = exact` (ops/render_dense.py) and
+    its kernels (csrc/dense.cu via ops/dense_cuda.py) on the card.
+
+    (a) In both precisions, on the oversize-coordinate, icon-fill and
+    large-fill scenes, 4 minicity z15 tiles, 2 of them at @2x, every
+    minicity z15 tile, 12 at @2x, the first 16 and all 97 bigcity z15
+    tiles and the production stylesheet's minicity z15 tiles:
+    `render_batch` (the three kernels) byte-identical to
+    `render_batch_plain` on the card and, but for the three largest
+    batches, on the CPU, and each kernel to its plain function on the
+    card (the stroke and fill alphas to `alphas` over the plan's strokes
+    or fills alone, the blend to `blend` over the full pending), max
+    |diff| 0.  (b) The
+    kernels' exact minicity z15 tiles within 1/255 of CpuDrawer, < 1 % of
+    values off.  (c) On minicity z15 x30, its 12 tiles @2x and bigcity
+    z15 x97, in both precisions: each kernel's device ms beside its bound
+    and its plain function's ms, the batch's ms, device operations and
+    peak memory through the kernels, and through the plain version (its
+    operations and memory on minicity z15 x30; -1: not traced)."""
     import numpy as np
     import torch
 
-    from osm_renderer_tpu_torch.tools.corpus import zoom_tiles
     from osm_renderer_tpu_torch.draw.drawer import CpuDrawer
     from osm_renderer_tpu_torch.geodata.reader import GeodataReader
+    from osm_renderer_tpu_torch.mapcss.parser import parse_file
+    from osm_renderer_tpu_torch.mapcss.styler import Styler
+    from osm_renderer_tpu_torch.ops import dense_cuda as DC
     from osm_renderer_tpu_torch.ops import render_dense as RD
     from osm_renderer_tpu_torch.parallel.renderer import BatchRenderer
+    from osm_renderer_tpu_torch.tools.corpus import zoom_tiles
+    from osm_renderer_tpu_torch.tools.kdevice import device_ms
 
-    reader = GeodataReader.load(MINI_BIN)
-    z15 = [(reader.get_entities_in_tile_with_neighbors(t), t) for t in zoom_tiles(reader, 15)]
-    renderers = {p: BatchRenderer(styler, backend="dense", precision=p, device=str(device))
-                 for p in ("exact", "fast")}
+    mini = GeodataReader.load(MINI_BIN)
+    z15 = [(mini.get_entities_in_tile_with_neighbors(t), t) for t in zoom_tiles(mini, 15)]
+    big = GeodataReader.load(BIG_BIN)
+    big15 = [(big.get_entities_in_tile_with_neighbors(t), t) for t in zoom_tiles(big, 15)]
+    prod_styler = Styler(parse_file(PROD_DIR, PROD_SHEET), "mapsme")
+    renderers = {(p, sheet): BatchRenderer(st, stylesheet_dir=d, backend="dense", precision=p,
+                                           device=str(device))
+                 for p in ("exact", "fast")
+                 for sheet, st, d in (("default", styler, None),
+                                      ("production", prod_styler, PROD_DIR))}
 
-    def prepared(precision, tiles_entities, scale):
-        p = renderers[precision].prepare(tiles_entities, scale)
+    def prepared(precision, tiles_entities, scale, sheet="default"):
+        p = renderers[(precision, sheet)].prepare(tiles_entities, scale)
         return p.batch, p.canvas_rgb, p.ts, p.chunk, p.chain, p.plan
 
+    worst = 0.0
+    timed: dict = {}
     for precision in ("exact", "fast"):
-        for name, args in (
-                ("minicity_z15_x4", prepared(precision, z15[:4], 1)),
-                ("minicity_z15_2x_x2", prepared(precision, z15[:2], 2)),
-                ("oversize_scene", _dense_scene(device, False, precision)),
-                ("icon_fill_scene", _dense_scene(device, True, precision))):
-            batch, canvas, ts, chunk, chain, plan = args
-            got = RD.render_batch(batch, canvas, ts, chunk, precision, chain, plan).cpu()
-            host = RD.TileBatch(*(t.cpu() for t in batch))
-            t0 = time.perf_counter()
-            want = RD.render_batch(host, canvas.cpu(), ts, chunk, precision, chain)
-            cpu_ms = (time.perf_counter() - t0) * 1e3
-            if not torch.equal(got, want):
-                n = int((got != want).any(-1).sum().item())
-                raise AssertionError(f"dense {precision} {name}: CUDA differs from the CPU in "
-                                     f"{n} pixels")
+        # (name, batch, also held to the plain version on the CPU).  The
+        # CPU takes ~0.3-1.3 s a tile here, so the three largest batches
+        # are held to it through bigcity z15's first 16 tiles.
+        batches = [
+            ("oversize_scene", lambda: _dense_scene(device, "oversize", precision), True),
+            ("icon_fill_scene", lambda: _dense_scene(device, "icon", precision), True),
+            ("large_fill_scene", lambda: _dense_scene(device, "large_fill", precision), True),
+            ("minicity_z15_x4", lambda: prepared(precision, z15[:4], 1), True),
+            ("minicity_z15_2x_x2", lambda: prepared(precision, z15[:2], 2), True),
+            ("minicity_z15_x30", lambda: prepared(precision, z15, 1), False),
+            ("minicity_z15_2x_x12", lambda: prepared(precision, z15[:12], 2), False),
+            ("bigcity_z15_x16", lambda: prepared(precision, big15[:16], 1), True),
+            ("bigcity_z15_x97", lambda: prepared(precision, big15, 1), False),
+            ("production_minicity_z15_x30", lambda: prepared(precision, z15, 1, "production"),
+             True),
+        ]
+        for name, make, on_cpu in batches:
+            t_batch = time.perf_counter()
+            batch, canvas, ts, chunk, chain, plan = make()
+            pack = DC.pack_plan(plan, batch.geom.shape[0]).to(device)
+            got = RD.render_batch(batch, canvas, ts, chunk, precision, chain, plan, pack)
+            # The plain version on the card phase by phase (render_batch_plain
+            # is `blend` over `alphas`), so the blend kernel meets its own.
+            pend = RD.alphas(batch, plan, chain)
+            plain = RD.blend(batch, canvas, plan, pend)
+            cpu, cpu_ms = plain.cpu(), None
+            if on_cpu:
+                host = RD.TileBatch(*(t.cpu() for t in batch))
+                t0 = time.perf_counter()
+                cpu = RD.render_batch_plain(host, canvas.cpu(), ts, chunk, precision, chain, plan)
+                cpu_ms = (time.perf_counter() - t0) * 1e3
+            # Each kernel against its plain function on the same inputs.
+            strokes_only = plan._replace(fills=[])
+            fills_only = plan._replace(strokes=plan.strokes[:0], stroke_passes=[])
+            sp, fp = DC.new_pending(batch, pack), DC.new_pending(batch, pack)
+            DC.stroke_alpha(batch, pack, sp, chain)
+            DC.fill_alpha(batch, pack, fp)
+            sp_want = RD.alphas(batch, strokes_only, chain)
+            fp_want = RD.alphas(batch, fills_only, chain)
+            bl = DC.blend_finalize(batch, canvas, pack, pend)
+            errs = {
+                "dense_stroke_alpha": float((sp - sp_want).abs().max()) if sp.numel() else 0.0,
+                "dense_fill_alpha": float((fp - fp_want).abs().max()) if fp.numel() else 0.0,
+                "dense_blend_finalize": float((bl.int() - plain.int()).abs().max()),
+            }
+            for k, v in errs.items():
+                out.setdefault("max_abs_err", {}).setdefault(k, 0.0)
+                out["max_abs_err"][k] = max(out["max_abs_err"][k], v)
+            same = (torch.equal(got, plain) and torch.equal(got.cpu(), cpu)
+                    and not any(errs.values()))
+            if not same:
+                n_gpu = int((got != plain).any(-1).sum().item())
+                n_cpu = int((got.cpu() != cpu).any(-1).sum().item())
+                raise AssertionError(f"dense kernels {precision} {name}: {n_gpu} pixels differ "
+                                     f"from the plain version on the card, {n_cpu} from the "
+                                     f"CPU; per kernel max |diff| {errs}")
+            worst = max(worst, *errs.values())
             painted = float((got != got[0, 0, 0]).any(-1).float().mean())
+            where = (f"on the card and on the CPU (CPU ms={cpu_ms:.1f})" if on_cpu
+                     else "on the card")
             log(f"  (a) {precision} {name}: T={got.shape[0]} ts={ts} chunk={chunk} "
-                f"chain={chain}: CUDA byte-identical to the CPU; painted {painted:.3f}; "
-                f"CPU ms={cpu_ms:.1f}")
-            out[f"cpu_ms_{precision}_{name}"] = cpu_ms
+                f"chain={chain} e_max={pack.e_max}: kernels byte-identical to the plain version "
+                f"{where}, each kernel to its plain function; painted {painted:.3f}; "
+                f"{time.perf_counter() - t_batch:.1f} s")
+            if name in ("minicity_z15_x30", "minicity_z15_2x_x12", "bigcity_z15_x97"):
+                timed[(precision, name)] = (batch, canvas, ts, chunk, chain, plan, pack, sp_want,
+                                            fp_want, pend)
 
     drawer = CpuDrawer(stylesheet_dir=STYLESHEET_DIR)
-    p = renderers["exact"].prepare(z15, 1)
-    got = renderers["exact"].render_prepared(p).cpu().numpy()
-    worst, frac, checked = 0, 0.0, 0
+    p = renderers[("exact", "default")].prepare(z15, 1)
+    got = renderers[("exact", "default")].render_prepared(p).cpu().numpy()
+    worst_px, frac, checked = 0, 0.0, 0
     for i, (ents, t) in enumerate(z15):
         if i in p.cpu_fallback_tiles:
             continue
         want = drawer.draw_to_pixels(ents, t, 1, styler)
         d = np.abs(want.astype(int) - got[i].astype(int))
-        worst, frac = max(worst, int(d.max())), max(frac, float((d > 0).mean()))
+        worst_px, frac = max(worst_px, int(d.max())), max(frac, float((d > 0).mean()))
         checked += 1
         if d.max() > 1 or (d > 0).mean() >= 0.01:
             raise AssertionError(f"dense exact {t}: max |diff| {d.max()}, "
                                  f"{100 * (d > 0).mean():.3f} % of values off the oracle")
-    log(f"  (b) exact minicity z15 x{len(z15)} vs CpuDrawer: {checked} tiles checked "
-        f"({len(p.cpu_fallback_tiles)} left to the oracle), max |diff| {worst}, worst tile "
-        f"{100 * frac:.4f} % of values off")
+    log(f"  (b) exact minicity z15 x{len(z15)} through the kernels vs CpuDrawer: {checked} tiles "
+        f"checked ({len(p.cpu_fallback_tiles)} left to the oracle), max |diff| {worst_px}, "
+        f"worst tile {100 * frac:.4f} % of values off")
 
-    for precision in ("exact", "fast"):
-        batch, canvas, ts, chunk, chain, plan = prepared(precision, z15, 1)
-        pend = RD.alphas(batch, plan, chain)
-        p1 = _event_ms(lambda: RD.alphas(batch, plan, chain))
-        p2 = _event_ms(lambda: RD.blend(batch, canvas, plan, pend))
-        total = _event_ms(lambda: RD.render_batch(batch, canvas, ts, chunk, precision, chain,
-                                                  plan))
-        ops = _device_launches(lambda: RD.render_batch(batch, canvas, ts, chunk, precision,
-                                                       chain, plan))
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        base = torch.cuda.memory_allocated()
-        RD.render_batch(batch, canvas, ts, chunk, precision, chain, plan)
-        torch.cuda.synchronize()
-        peak = torch.cuda.max_memory_allocated() - base
-        stroke_px = sum(n for _, _, n in plan.stroke_passes)
-        fill_px = sum(q[3] for _, _, passes in plan.fills for q in passes)
-        log(f"  (c) {smi}: {precision} minicity z15 x{len(z15)} (C={batch.chunk_kind.shape[1]}, "
-            f"{plan.strokes.shape[0]} segments over {stroke_px} px in "
-            f"{len(plan.stroke_passes)} passes, {fill_px} fill px, {plan.groups.shape[0]} "
-            f"primitives in {len(plan.levels)} levels): total ms={total:.2f} "
-            f"(phase 1 {p1:.2f}, phase 2 {p2:.2f}); device operations={ops}; "
-            f"peak memory {peak / 2**20:.1f} MiB")
-        out[precision] = dict(total_ms=total, phase1_ms=p1, phase2_ms=p2, launches=ops,
-                              peak_bytes=peak)
+    for (precision, name), args in timed.items():
+        t_batch = time.perf_counter()
+        batch, canvas, ts, chunk, chain, plan, pack, sp_want, fp_want, pend = args
+        bounds = dense_bounds(batch, plan, pack, sp_want, fp_want)
+        scratch = DC.new_pending(batch, pack)
+        dev_ms = {
+            "dense_stroke_alpha": device_ms(lambda: DC.stroke_alpha(batch, pack, scratch, chain),
+                                            10),
+            "dense_fill_alpha": device_ms(lambda: DC.fill_alpha(batch, pack, scratch), 10),
+            "dense_blend_finalize": device_ms(lambda: DC.blend_finalize(batch, canvas, pack,
+                                                                        pend), 10),
+        }
+        strokes_only = plan._replace(fills=[])
+        fills_only = plan._replace(strokes=plan.strokes[:0], stroke_passes=[])
+        plain_ms = {
+            "dense_stroke_alpha": _event_ms(lambda: RD.alphas(batch, strokes_only, chain), 1),
+            "dense_fill_alpha": _event_ms(lambda: RD.alphas(batch, fills_only, chain), 1),
+            "dense_blend_finalize": _event_ms(lambda: RD.blend(batch, canvas, plan, pend), 1),
+        }
+
+        def kernels():
+            return RD.render_batch(batch, canvas, ts, chunk, precision, chain, plan, pack)
+
+        def plain():
+            return RD.render_batch_plain(batch, canvas, ts, chunk, precision, chain, plan)
+
+        total = _event_ms(kernels, 5)
+        total_dev = device_ms(kernels, 10)
+        plain_total = _event_ms(plain, 1)
+        ops, peak = _device_launches(kernels, 5), _peak_bytes(kernels)
+        # The plain version's operations and memory: on the 30-tile batch
+        # only (PR 6's reference); a 97-tile trace takes ~10 s.
+        plain_ops = plain_peak = -1
+        if name == "minicity_z15_x30":
+            plain_ops, plain_peak = _device_launches(plain), _peak_bytes(plain)
+        row = dict(total_ms=total, total_dev_ms=total_dev, plain_ms=plain_total, launches=ops,
+                   plain_launches=plain_ops, peak_bytes=peak, plain_peak_bytes=plain_peak,
+                   kernels={k: dict(ms=dev_ms[k], plain_ms=plain_ms[k], bound_ms=bounds[k][0],
+                                    bound_by=bounds[k][1]) for k in dev_ms})
+        out.setdefault("timed", {})[(precision, name)] = row
+        log(f"  (c) {smi}: {precision} {name} (C={batch.chunk_kind.shape[1]}, "
+            f"{pack.n_strokes} segments over {pack.stroke_px} px, {pack.n_fills} fills over "
+            f"{pack.fill_rows} rows, {pack.n_groups} groups, pending {pack.pending_size}): "
+            f"kernels {total:.4f} ms a batch ({total_dev:.4f} device, enqueue hidden), plain "
+            f"{plain_total:.2f} ms; device operations {ops} (plain {plain_ops}); peak memory "
+            f"{peak / 2**20:.1f} MiB (plain {max(plain_peak, 0) / 2**20:.1f}); "
+            f"{time.perf_counter() - t_batch:.1f} s")
+        for k in DC.KERNELS:
+            r = row["kernels"][k]
+            log(f"      {k}: {r['ms']:.4f} ms device, bound {r['bound_ms']:.6f} ms "
+                f"({r['bound_by']}), {100 * r['bound_ms'] / r['ms']:.2f} % of it; plain "
+                f"function {r['plain_ms']:.2f} ms")
+    out["worst"] = worst
 
 
 def fetch(url: str, timeout: float = 300.0):
@@ -1178,11 +1384,16 @@ def phase_server(styler, rows_out, device="cuda", precision="fast", gpus=1,
         text = f.read()
     if proc.returncode != 0:
         raise AssertionError(f"server exited with {proc.returncode}:\n{text[-4000:]}")
-    launches, counts = {}, {}
+    launches, counts, dense = {}, {}, None
     for line in text.splitlines():
         for kernel in ("render", "emit", "expand"):
             if line.startswith(f"{kernel} kernel launches while serving:"):
                 launches[kernel] = int(line.rsplit(":", 1)[1])
+        if line.startswith("dense kernel launches while serving:"):
+            dense = int(line.rsplit(":", 1)[1])
+        if line.startswith("dense kernel launches by kernel while serving:"):
+            pairs = (kv.rsplit("=", 1) for kv in line.split(":", 1)[1].split())
+            counts["dense by kernel"] = {k: int(v) for k, v in pairs}
         for what in ("batches", "readback bytes", "tiles by renderer"):
             if line.startswith(f"{what} while serving:"):
                 counts[what] = {k: int(v) for k, v in
@@ -1195,15 +1406,24 @@ def phase_server(styler, rows_out, device="cuda", precision="fast", gpus=1,
     if gpus > 1 and sum(1 for v in by_renderer.values() if v) < 2:
         raise AssertionError(f"gpus = {gpus}: fewer than two renderers rendered tiles "
                              f"({by_renderer})")
+    by_kernel = counts.get("dense by kernel", {})
+    if dense is None or sum(by_kernel.values()) != dense:
+        raise AssertionError(f"the server printed dense launches {dense}, by kernel {by_kernel}")
     if exact:
         if len(launches) != 3 or any(launches.values()):
             raise AssertionError(f"the exact server launched kernels ({launches}):"
                                  f"\n{text[-4000:]}")
+        if not all(by_kernel.get(k) for k in ("dense_stroke_alpha", "dense_fill_alpha",
+                                              "dense_blend_finalize")):
+            raise AssertionError(f"the exact server did not launch every dense kernel "
+                                 f"({by_kernel}):\n{text[-4000:]}")
         if not batches.get("dense") or any(batches.get(k) for k in ("arena", "plain", "v1",
                                                                     "v2", "labeled_tiles")):
             raise AssertionError(f"the exact server did not serve dense batches only "
                                  f"({batches})")
     else:
+        if dense:
+            raise AssertionError(f"the fast server launched dense kernels ({by_kernel})")
         if not all(launches.get(k) for k in ("render", "emit", "expand")):
             raise AssertionError(f"server did not launch every kernel while serving "
                                  f"({launches}):\n{text[-4000:]}")
@@ -1250,10 +1470,15 @@ def phase_server(styler, rows_out, device="cuda", precision="fast", gpus=1,
         "all HTTP 200 + PNG; "
         f"{n_unlabeled} unlabeled tiles max |diff| vs oracle = {worst_unlabeled}; "
         f"{n_labeled} labeled tiles max |diff| vs oracle + host composite = {worst_labeled}")
-    log(f"  kernel launches while serving: {launches}; batches: {batches}; "
+    log(f"  kernel launches while serving: {launches}; dense kernel launches while serving: "
+        f"{dense} {by_kernel}; batches: {batches}; "
         f"readback bytes: wire {rb.get('wire')} for raw planar {rb.get('planar')}; "
         f"tiles by renderer: {by_renderer}")
-    rows_out["launches"] = launches
+    if exact:
+        log(f"  exact CLI: {len(reqs) / serve_s:.2f} tiles/s ({len(reqs)} distinct tiles "
+            f"requested at once, cold, labels on)")
+    rows_out.update(launches=launches, dense_launches=by_kernel,
+                    tiles_per_s=len(reqs) / serve_s)
 
 
 def warm_tile_ms(svc, n: int, reps: int = 5):
@@ -1795,9 +2020,10 @@ def main() -> int:
         "of the host composite, (c) alpha = 1 cores and outside the label bbox exact)")
     phase_labeled(device, styler)
 
-    log("phase 4c: dense renderer (ops/render_dense.py) on the card "
-        "(bars: (a) CUDA byte-identical to the CPU, exact and fast; (b) exact <= 1/255 of "
-        "CpuDrawer with < 1 % of values off)")
+    log("phase 4c: the dense renderer's kernels (csrc/dense.cu) on the card "
+        "(bars: (a) byte-identical to the plain version on the card and on the CPU, each kernel "
+        "to its plain function, exact and fast; (b) exact <= 1/255 of CpuDrawer with < 1 % of "
+        "values off)")
     dense: dict = {}
     t0 = time.perf_counter()
     phase_dense(device, styler, smi, dense)
@@ -1806,9 +2032,11 @@ def main() -> int:
     log("phase 5: served path (renderer_main, backend = device, labels = yes)")
     phase_server(styler, {})
 
-    log("phase 5b: served exact (renderer_main, precision = exact, labels = yes)")
+    log("phase 5b: served exact (renderer_main, precision = exact, labels = yes; the dense "
+        "kernels' main path)")
     t0 = time.perf_counter()
-    phase_server(styler, {}, precision="exact")
+    exact_server: dict = {}
+    phase_server(styler, exact_server, precision="exact")
     log(f"  phase 5b took {time.perf_counter() - t0:.1f} s ({smi})")
 
     log("phase 6: warm served path in process (PNG cache off; labels off, then on)")
@@ -1868,18 +2096,25 @@ def main() -> int:
                        wire_head["v2_dev_ms"], wire_head["v2_plain_ms"],
                        wire_head["v2_bound_ms"], "bytes"),
     }
-    # Launches in this slice's main path: the bench's (phase 10 (b)).
+    big_exact = dense["timed"][("exact", "bigcity_z15_x97")]["kernels"]
+    for name in DENSE_KERNELS:
+        k = big_exact[name]
+        measured[name] = (dense["max_abs_err"][name], k["ms"], k["plain_ms"], k["bound_ms"],
+                          k["bound_by"])
+    # Launches in each slice's main path: the bench's (phase 10 (b)) for
+    # the render and wire kernels, the exact server's (phase 5b) for the
+    # dense kernels.
     ran = bench_out["launches"]
     launches = {"render_planar": ran["render"], "rle_emit": ran["emit"],
-                "rle_expand": ran["expand"]}
+                "rle_expand": ran["expand"], **exact_server["dense_launches"]}
     kernels = {"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,
          "launches": launches[name], "max_abs_err": measured[name][0],
          "ms": measured[name][1], "plain_ms": measured[name][2],
          "bound_ms": measured[name][3], "bound_by": measured[name][4],
-         # No single PyTorch call computes any of the three functions.
+         # No single PyTorch call computes any of these functions.
          "library_ms": None}
-        for name, (source, replaces) in KERNELS.items()
+        for name, (source, replaces) in {**KERNELS, **DENSE_KERNELS}.items()
     ]}
     print(json.dumps(kernels), flush=True)
     print(json.dumps({"ok": True, "device": {

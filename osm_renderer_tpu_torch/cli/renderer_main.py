@@ -28,7 +28,8 @@ defaults to `cuda`); `backend = cpu` is the way to ask for the oracle.
 refused: the server never serves on fewer devices than it was asked
 for.  With backend = device, the server prints, when it shuts down, the
 launches of each kernel made while serving (render, run emit, palette
-expand) and, summed over its renderers, the batches it served by path:
+expand; then the dense kernels of `precision = exact`, in all and by
+kernel) and, summed over its renderers, the batches it served by path:
 arena or plain upload or dense (`precision = exact`), and v1 wire, v2
 wire or raw planar readback, beside the tiles whose labels were blended
 on the device (`labeled_tiles`), then the tiles each renderer rendered
@@ -124,7 +125,7 @@ def main(argv=None) -> int:
         print(f"ValueError: {e}", file=sys.stderr)
         return 1
 
-    from osm_renderer_tpu_torch.ops import render_cuda, rle_cuda
+    from osm_renderer_tpu_torch.ops import dense_cuda, render_cuda, rle_cuda
     from osm_renderer_tpu_torch.server.http import run_server
 
     if backend == "device":
@@ -134,6 +135,7 @@ def main(argv=None) -> int:
         render_cuda.RENDER_KERNEL_LAUNCHES = 0
         rle_cuda.EMIT_KERNEL_LAUNCHES = 0
         rle_cuda.EXPAND_KERNEL_LAUNCHES = 0
+        dense_cuda.DENSE_KERNEL_LAUNCHES.update(dict.fromkeys(dense_cuda.KERNELS, 0))
         for r in service.batch_renderers:
             for counts in (r.batch_counts, r.readback_bytes):
                 counts.update(dict.fromkeys(counts, 0))
@@ -148,6 +150,10 @@ def main(argv=None) -> int:
         print(f"render kernel launches while serving: {render_cuda.RENDER_KERNEL_LAUNCHES}")
         print(f"emit kernel launches while serving: {rle_cuda.EMIT_KERNEL_LAUNCHES}")
         print(f"expand kernel launches while serving: {rle_cuda.EXPAND_KERNEL_LAUNCHES}")
+        dense = dense_cuda.DENSE_KERNEL_LAUNCHES
+        print(f"dense kernel launches while serving: {sum(dense.values())}")
+        print("dense kernel launches by kernel while serving: "
+              + " ".join(f"{k}={v}" for k, v in dense.items()))
         for label, what in (("batches", "batch_counts"), ("readback bytes", "readback_bytes")):
             total = Counter()
             for r in service.batch_renderers:

@@ -8,7 +8,8 @@ Two interchangeable backends with identical output:
   labels -> blend -> RGB.
 * `DeviceDrawer` — assembles the same paint-ordered primitives into a
   chunk stream and renders fills/strokes on the device with the dense
-  exact renderer (ops/render_dense.py); labels are placed and
+  exact renderer (ops/render_dense.py; on a CUDA device its kernels,
+  csrc/dense.cu via ops/dense_cuda.py); labels are placed and
   composited on the host over the device output.
 """
 
@@ -132,6 +133,7 @@ class DeviceDrawer:
         """Render a batch of tiles -> (T, ts, ts, 3) uint8."""
         import torch
 
+        from osm_renderer_tpu_torch.ops.dense_cuda import pack_plan
         from osm_renderer_tpu_torch.ops.render_dense import (
             PIXEL_BUDGET,
             TileBatch,
@@ -169,9 +171,12 @@ class DeviceDrawer:
             )
         ts = 256 * scale
         plan = plan_batch(batch, ts, chunk, "exact", PIXEL_BUDGET[self.device.type])
+        pack = None
+        if self.device.type == "cuda":
+            pack = pack_plan(plan, len(streams)).to(self.device)
         out = render_batch(
             TileBatch.from_numpy(batch, self.device), canvas_rgb.to(self.device), ts, chunk,
-            chain=profiles.has_round_caps(), plan=plan,
+            chain=profiles.has_round_caps(), plan=plan, pack=pack,
         ).cpu().numpy()
 
         if self.labeler is not None:

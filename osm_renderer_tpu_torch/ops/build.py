@@ -119,12 +119,34 @@ def rle_library(ptxas_verbose: bool = False) -> ctypes.CDLL:
     return lib
 
 
+def dense_library(ptxas_verbose: bool = False) -> ctypes.CDLL:
+    from osm_renderer_tpu_torch.ops import dense_cuda as DC
+
+    lib = load_library("dense.cu", ptxas_verbose)
+    P, I = ctypes.c_void_p, ctypes.c_int
+    # ptrs, dims, exact, [chain,] stream
+    lib.osmr_dense_stroke_alpha.argtypes = [P, P, I, I, P]
+    lib.osmr_dense_fill_alpha.argtypes = [P, P, I, P]
+    lib.osmr_dense_blend_finalize.argtypes = [P, P, I, P]
+    for fn in (lib.osmr_dense_stroke_alpha, lib.osmr_dense_fill_alpha,
+               lib.osmr_dense_blend_finalize, lib.osmr_dense_constants):
+        fn.restype = ctypes.c_int
+    lib.osmr_dense_constants.argtypes = [P]
+    got = (ctypes.c_int64 * 5)()
+    lib.osmr_dense_constants(got)
+    want = (DC.N_PTRS, DC.N_DIMS, DC.SMEM_EDGES, DC.FILL_WARPS, DC.BAND_PX)
+    if tuple(got) != want:
+        raise RuntimeError(f"csrc/dense.cu's constants {tuple(got)} differ from "
+                           f"ops/dense_cuda.py's {want}")
+    return lib
+
+
 def build_all(ptxas_verbose: bool = False) -> None:
     """Build every kernel library at once: one nvcc per source, all
     started together.  Raises the first build failure."""
     from concurrent.futures import ThreadPoolExecutor
 
-    loaders = (render_library, rle_library)
+    loaders = (render_library, rle_library, dense_library)
     with ThreadPoolExecutor(len(loaders)) as ex:
         for fut in [ex.submit(load, ptxas_verbose) for load in loaders]:
             fut.result()

@@ -28,6 +28,11 @@ so neither phase waits on the device.  Geometry past
 `WINDOW_COORD_BOUND` is evaluated over the whole tile, where the window
 argument's integer bounds would not hold.  `render_batch_stepwise` is
 the reference's step-by-step order, kept for the tests.
+
+This is the plain version (`render_batch_plain`), which runs on any
+device.  `render_batch` takes it for CPU tensors; for CUDA tensors it
+runs the same two phases as the hand-written kernels of `csrc/dense.cu`
+(`ops/dense_cuda.py`).
 """
 
 from __future__ import annotations
@@ -388,10 +393,9 @@ def _stroke_segment_alpha(p1x, p1y, p2x, p2y, hw, opacity, prof, prof_total, tra
 # --------------------------------------------------------------------------
 
 
-def _fill_rows(x1, y1, x2, y2, mask, rows, fi, ff):
+def _fill_crossings(x1, y1, x2, y2, mask, rows, fi, ff):
     """Per (row, edge) crossing positions of a fill's edges (edges on the
-    last axis; rows broadcast as (..., 1)) -> (a, b, active, odd_rank,
-    n_active)."""
+    last axis; rows broadcast as (..., 1)) -> (a, b, active)."""
     adx = torch.abs(x2 - x1)
     ady = torch.abs(y2 - y1)
     sx = _sign(x1 < x2, fi)
@@ -415,12 +419,18 @@ def _fill_rows(x1, y1, x2, y2, mask, rows, fi, ff):
     sh_b = torch.maximum(sh_lo, sh_hi)
 
     steep = ady > adx
-    a = torch.where(steep, steep_x, sh_a)
-    b = torch.where(steep, steep_x, sh_b)
+    return torch.where(steep, steep_x, sh_a), torch.where(steep, steep_x, sh_b), active
 
-    # Stable rank within each row by (a, edge index).
-    big = 2**60 if fi == torch.int64 else 2**30
-    a_masked = torch.where(active, a, torch.full((), big, dtype=fi, device=a.device))
+
+# The sort key of an inactive edge in a row's stable rank.
+FILL_RANK_BIG = {torch.int64: 2**60, torch.int32: 2**30}
+
+
+def _fill_rows(x1, y1, x2, y2, mask, rows, fi, ff):
+    """`_fill_crossings` and the stable rank of each edge within its row
+    by (a, edge index) -> (a, b, active, odd_rank, n_active)."""
+    a, b, active = _fill_crossings(x1, y1, x2, y2, mask, rows, fi, ff)
+    a_masked = torch.where(active, a, torch.full((), FILL_RANK_BIG[fi], dtype=fi, device=a.device))
     order = torch.argsort(a_masked, dim=-1, stable=True)
     idx = torch.arange(order.shape[-1], dtype=order.dtype, device=order.device)
     rank = torch.zeros_like(order).scatter_(-1, order, idx.expand_as(order))
@@ -810,9 +820,34 @@ def blend(batch: TileBatch, canvas_rgb, plan: BatchPlan, pending: torch.Tensor) 
     return _finalize_rgb(C.reshape(T, ts, ts, 4))
 
 
+def _plan_for(batch: TileBatch, ts: int, chunk: int, precision: str,
+              plan: Optional[BatchPlan]) -> BatchPlan:
+    """`plan`, checked against ts and precision; without it the schedule
+    read back from the batch (one device-to-host copy)."""
+    if plan is None:
+        host = batch._replace(**{f: getattr(batch, f).cpu().numpy() for f in (
+            "geom", "chunk_kind", "chunk_off", "chunk_cnt", "chunk_last", "chunk_hw",
+            "chunk_pat")})
+        return plan_batch(host, ts, chunk, precision,
+                          PIXEL_BUDGET["cuda" if batch.geom.is_cuda else "cpu"])
+    if (plan.ts, plan.precision) != (ts, precision):
+        raise ValueError(f"plan for ts={plan.ts} {plan.precision!r}, asked for ts={ts} "
+                         f"{precision!r}")
+    return plan
+
+
+def render_batch_plain(batch: TileBatch, canvas_rgb, ts: int, chunk: int = 64,
+                       precision: str = "exact", chain: bool = False,
+                       plan: Optional[BatchPlan] = None) -> torch.Tensor:
+    """The plain PyTorch version, on any device: phase 1 (`alphas`), then
+    phase 2 (`blend`) -> (T, ts, ts, 3) uint8."""
+    plan = _plan_for(batch, ts, chunk, precision, plan)
+    return blend(batch, canvas_rgb, plan, alphas(batch, plan, chain))
+
+
 def render_batch(batch: TileBatch, canvas_rgb, ts: int, chunk: int = 64,
                  precision: str = "exact", chain: bool = False,
-                 plan: Optional[BatchPlan] = None) -> torch.Tensor:
+                 plan: Optional[BatchPlan] = None, pack=None) -> torch.Tensor:
     """Render all tiles of the batch -> (T, ts, ts, 3) uint8 on the
     batch's device, byte-identical to `render_jnp.render_batch`.
 
@@ -821,14 +856,21 @@ def render_batch(batch: TileBatch, canvas_rgb, ts: int, chunk: int = 64,
     membership while every tile-relative coordinate stays under the
     fast-path bound.  `plan`: the batch's `plan_batch` schedule, made
     from the numpy arrays before the upload; without it the schedule is
-    read back from the batch (one device-to-host copy)."""
-    if plan is None:
-        host = batch._replace(**{f: getattr(batch, f).cpu().numpy() for f in (
-            "geom", "chunk_kind", "chunk_off", "chunk_cnt", "chunk_last", "chunk_hw",
-            "chunk_pat")})
-        plan = plan_batch(host, ts, chunk, precision,
-                          PIXEL_BUDGET["cuda" if batch.geom.is_cuda else "cpu"])
-    elif (plan.ts, plan.precision) != (ts, precision):
-        raise ValueError(f"plan for ts={plan.ts} {plan.precision!r}, asked for ts={ts} "
+    read back from the batch (one device-to-host copy).
+
+    CUDA tensors render through the hand-written kernels of
+    `csrc/dense.cu` (`ops/dense_cuda.py`; `pack`: the plan's
+    `dense_cuda.pack_plan`, on the batch's device, made from the plan
+    when not given); a failed build or launch raises.  CPU tensors run
+    `render_batch_plain`."""
+    if not batch.geom.is_cuda:
+        return render_batch_plain(batch, canvas_rgb, ts, chunk, precision, chain, plan)
+    from osm_renderer_tpu_torch.ops import dense_cuda
+
+    if pack is None:
+        plan = _plan_for(batch, ts, chunk, precision, plan)
+        pack = dense_cuda.pack_plan(plan, batch.geom.shape[0]).to(batch.geom.device)
+    elif (pack.ts, pack.precision) != (ts, precision):
+        raise ValueError(f"pack for ts={pack.ts} {pack.precision!r}, asked for ts={ts} "
                          f"{precision!r}")
-    return blend(batch, canvas_rgb, plan, alphas(batch, plan, chain))
+    return dense_cuda.render_batch(batch, canvas_rgb, pack, chain)

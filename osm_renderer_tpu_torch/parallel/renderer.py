@@ -6,7 +6,9 @@ round-robin).  `backend="dense"` is the reference's "jnp" backend: each
 batch streams its tiles' primitives (`draw.primitives.stream_tile`), stacks
 them with `build_batch` and renders them with `ops.render_dense` in the
 batch's `precision` ("exact": int64/f64, the only way to draw geometry
-past the fast path's coordinate bound; "fast": int32/f32), and the
+past the fast path's coordinate bound; "fast": int32/f32): on a CUDA
+device through the dense kernels (`ops.dense_cuda`, their arguments
+packed in `prepare`), on the CPU through the plain version.  The
 (T, ts, ts, 3) batch is read back raw.  The default backend, "cuda", is
 the kernels' path described below.
 
@@ -39,6 +41,7 @@ from osm_renderer_tpu_torch.draw.primitives import FAST_COORD_BOUND, FillPrim, a
 from osm_renderer_tpu_torch.mapcss.styler import Styler
 from osm_renderer_tpu_torch.draw import native_assembler as _na
 from osm_renderer_tpu_torch.ops import chunk_layout as L
+from osm_renderer_tpu_torch.ops import dense_cuda as DC
 from osm_renderer_tpu_torch.ops import render_dense as RD
 from osm_renderer_tpu_torch.ops import render_cuda as RC
 from osm_renderer_tpu_torch.ops import rle_cuda as RLE
@@ -64,10 +67,12 @@ class PreparedBatch(NamedTuple):
     label_ctx: object = None                    # (slab, slab.generation)
     device_labeled: tuple = ()                  # tile indices blitted on the device
     # Dense backend: "exact" or "fast" ("cuda" on the kernels' path), the
-    # walk-chain flag (round-capped dashes) and the host schedule.
+    # walk-chain flag (round-capped dashes), the host schedule and, on a
+    # CUDA device, the dense kernels' packed arguments (uploaded).
     precision: str = "cuda"
     chain: bool = False
     plan: Optional[RD.BatchPlan] = None
+    pack: Optional[DC.DensePack] = None
 
 
 class RleRendered(NamedTuple):
@@ -304,7 +309,8 @@ class BatchRenderer:
         """The reference's jnp prepare: fresh tables, the chunk doubled
         until it holds the largest fill (every fill is one chunk), tiles
         with icon fills left to the oracle, coordinates checked only for
-        the fast precision.  The schedule is planned before the upload."""
+        the fast precision.  The schedule is planned, and on a CUDA device
+        packed for the dense kernels, before the upload."""
         dtype = np.float32 if self.precision == "fast" else np.float64
         ts_px = 256 * scale
         profiles = prim_mod.ProfileTable()
@@ -327,10 +333,13 @@ class BatchRenderer:
             self._check_coords(arrays.geom)
         plan = RD.plan_batch(arrays, ts_px, chunk, self.precision,
                              RD.PIXEL_BUDGET[self.device.type])
+        pack = None
+        if self.device.type == "cuda":
+            pack = DC.pack_plan(plan, len(streams)).to(self.device)
         return PreparedBatch(
             RD.TileBatch.from_numpy(arrays, self.device), self._canvas_tensor(dtype), ts_px,
             chunk, fallback, precision=self.precision, chain=profiles.has_round_caps(),
-            plan=plan,
+            plan=plan, pack=pack,
         )
 
     def _finalize_arena(
@@ -480,7 +489,7 @@ class BatchRenderer:
         if prepared.precision != "cuda":
             out = RD.render_batch(prepared.batch, prepared.canvas_rgb, prepared.ts,
                                   prepared.chunk, prepared.precision, prepared.chain,
-                                  prepared.plan)
+                                  prepared.plan, prepared.pack)
             self.batch_counts["dense"] += 1
             return out
         return self.render_prepared_planar(prepared)[:, :3].permute(0, 2, 3, 1)

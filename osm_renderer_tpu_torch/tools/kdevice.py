@@ -8,10 +8,13 @@ the device time of the named kernels only (`render_kernel` of
 a call's whole device work with CUDA events instead, the host's enqueue
 hidden behind a sleep on the card.  The command line
 times the z15 batch of a city through the arena entry, then the v2 wire
-behind it:
+behind it; with `--dense exact` (or `fast`) it times the same batch on
+the dense renderer of `precision = exact` instead, by kernel
+(`dense_stroke_alpha`, `dense_fill_alpha`, `dense_blend_finalize` of
+`csrc/dense.cu`):
 
     python -m osm_renderer_tpu_torch.tools.kdevice [--reps 8] [--zoom 15] \\
-        [--geodata assets/fixtures/bigcity.bin] [--device cuda]
+        [--geodata assets/fixtures/bigcity.bin] [--device cuda] [--dense exact|fast]
 
 It runs on the card by default.  `--device cpu` (for the tests) runs the
 kernels' plain versions and reports their CPU operator time, which is
@@ -136,8 +139,12 @@ def zoom_tiles_entities(geodata: str, zoom: int):
     return with_entities(reader, zoom_tiles(reader, zoom)), styler
 
 
-def parse_args(argv, description: str) -> argparse.Namespace:
+def parse_args(argv, description: str, dense: bool = False) -> argparse.Namespace:
+    """The tools' shared options; `dense` adds kdevice's --dense."""
     ap = argparse.ArgumentParser(description=description)
+    if dense:
+        ap.add_argument("--dense", choices=("exact", "fast"),
+                        help="time the dense renderer's kernels in this precision instead")
     ap.add_argument("--reps", type=int, default=8)
     ap.add_argument("--zoom", type=int, default=15)
     ap.add_argument("--geodata", default=os.path.join(REPO_ROOT, "assets", "fixtures", "bigcity.bin"))
@@ -149,17 +156,28 @@ def main(argv=None) -> int:
     from osm_renderer_tpu_torch.parallel.renderer import BatchRenderer, start_wire_copy
     from osm_renderer_tpu_torch.utils.torch_setup import resolve_device
 
-    args = parse_args(argv, "Device ms of the render kernel and the v2 wire on one batch.")
+    args = parse_args(argv, "Device ms of the render kernel and the v2 wire on one batch.",
+                      dense=True)
     device = resolve_device(args.device)
     te, styler = zoom_tiles_entities(args.geodata, args.zoom)
     n = len(te)
-    r = BatchRenderer(styler, stylesheet_dir=STYLESHEET_DIR, chunk_cache_tiles=4 * n,
-                      device=device, arena=True)
-    prep = r.prepare(te, 1)
-    # The first wire is v1 and teaches the renderer its palette; the
-    # timed calls ship the v2 wire, as warm serving does.
-    r.fetch_tile_view(start_wire_copy(r.render_prepared_rle(prep)))
-    got = device_ms_per_call(lambda: r.render_prepared_rle(prep), args.reps, KERNELS, device)
+    if args.dense:
+        from osm_renderer_tpu_torch.ops.dense_cuda import KERNELS as DENSE_KERNELS
+
+        r = BatchRenderer(styler, stylesheet_dir=STYLESHEET_DIR, device=device,
+                          backend="dense", precision=args.dense)
+        prep = r.prepare(te, 1)
+        got = device_ms_per_call(lambda: r.render_prepared(prep), args.reps, DENSE_KERNELS,
+                                 device)
+    else:
+        r = BatchRenderer(styler, stylesheet_dir=STYLESHEET_DIR, chunk_cache_tiles=4 * n,
+                          device=device, arena=True)
+        prep = r.prepare(te, 1)
+        # The first wire is v1 and teaches the renderer its palette; the
+        # timed calls ship the v2 wire, as warm serving does.
+        r.fetch_tile_view(start_wire_copy(r.render_prepared_rle(prep)))
+        got = device_ms_per_call(lambda: r.render_prepared_rle(prep), args.reps, KERNELS,
+                                 device)
     ms = got["ms"]
     if got["clock"] == "cpu":
         print(f"cpu: {ms:9.3f} ms/batch of CPU operator time in the plain versions "

@@ -5,7 +5,8 @@ cache with the Pallas kernel's signatures.  The port compiles nothing
 per shape: its kernels take the batch's sizes as arguments.  What it
 warms instead:
 
-* both kernel libraries, built by nvcc into the kernel build directory
+* the three kernel libraries (render, wires, and the dense kernels of
+  `precision = exact`), built by nvcc into the kernel build directory
   (`ops/build.py::build_all`; `build/kernels/` unless
   `OSMR_TORCH_BUILD_DIR` says otherwise), named by a hash of source and
   flags, so every later process on this checkout loads them without

@@ -395,4 +395,5 @@ def test_no_port_file_imports_the_jax_package():
         "kdevice", "kdecomp_device", "scale_sweep", "parity_check", "warmup", "profile_serving",
         "cold_profile", "ktime", "kdecomp")} <= set(files)
     assert os.path.join(REPO_ROOT, "osm_renderer_tpu_torch", "bench.py") in files
+    assert os.path.join(REPO_ROOT, "osm_renderer_tpu_torch", "ops", "dense_cuda.py") in files
     assert not bad, bad

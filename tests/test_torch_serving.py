@@ -386,8 +386,8 @@ def test_port_cli_serves_and_reports_launches(mini_bin, tmp_path):
 
 def test_port_cli_serves_exact(mini_bin, tmp_path):
     """`precision = exact` through the port's CLI with device = cpu and
-    labels = yes: it serves dense batches, launches no kernel and reads
-    back no wire."""
+    labels = yes: it serves dense batches, launches no kernel (the dense
+    kernels' count printed as 0) and reads back no wire."""
     import subprocess
     import sys
 
@@ -425,6 +425,8 @@ def test_port_cli_serves_exact(mini_bin, tmp_path):
             proc.wait()
     text = log.read_text()
     assert "render kernel launches while serving: 0" in text
+    # The dense kernels' plain versions ran on the CPU: no launch.
+    assert "dense kernel launches while serving: 0" in text
     batches = next(line for line in text.splitlines() if line.startswith("batches while"))
     counts = dict(kv.split("=") for kv in batches.split(":", 1)[1].split())
     assert int(counts["dense"]) >= 1 and int(counts["arena"]) == 0, batches

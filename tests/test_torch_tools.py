@@ -127,6 +127,15 @@ def test_kdevice_cli_and_cpu_clock(mini_bin, capsys):
     assert got["clock"] == "cpu" and got["launches"] == 0 and got["ms"] >= 0
 
 
+def test_kdevice_cli_dense_on_the_cpu(mini_bin, capsys):
+    """--dense exact times the dense renderer's batch (its plain version
+    on the CPU, labelled as CPU time)."""
+    assert kdevice.main(["--device", "cpu", "--reps", "1", "--geodata", mini_bin,
+                         "--dense", "exact"]) == 0
+    out = capsys.readouterr().out
+    assert out.startswith("cpu: ") and "not a device time; 1 tiles" in out
+
+
 # ---------------------------------------------------------------------------
 # The operator and profiling tools (scale_sweep, parity_check, warmup,
 # profile_serving, cold_profile, ktime, kdecomp) on the CPU.
