@@ -64,19 +64,22 @@ Phases (any failure exits non-zero; no phase is skipped):
    version (ops/render_dense.py::render_batch_plain).  (a) In both
    precisions, on the oversize-coordinate, icon-fill (walk chain off)
    and large-fill (a 1024-lane edge bucket: the fill kernel's global
-   scratch) scenes, 4 minicity z15 tiles and 2 at @2x, all 30 minicity
-   z15 tiles and 12 at @2x, the first 16 and all 97 bigcity z15 tiles
-   and the production stylesheet's 30 minicity z15 tiles (chain printed
-   for each): the kernels byte-identical to the plain version on the
-   card and, but for minicity x30, @2x x12 and bigcity x97 (the CPU
-   takes ~0.3-1.3 s a tile), on the CPU, and each kernel to its plain
-   function on the card; (b) the
+   scratch) scenes, 4 minicity z15 tiles and 2 at @2x, @3x and @4x,
+   all 30 minicity z15 tiles and 12 at @2x, the first 16 and all 97
+   bigcity z15 tiles and the production stylesheet's 30 minicity z15
+   tiles (chain printed for each): the kernels byte-identical to the
+   plain version on the card and, but for minicity x30, @2x x12 and
+   bigcity x97 (the CPU takes ~0.3-1.3 s a tile), on the CPU, and each
+   kernel to its plain function on the card; (b) the
    kernels' exact minicity z15 tiles within 1/255 of CpuDrawer, < 1 % of
    values off; (c) on minicity z15 x30, its 12 tiles @2x and bigcity
    z15 x97, both precisions: each kernel's device ms (enqueue hidden)
-   beside its bound (`dense_bounds`) and its plain function's ms; the
-   batch's ms through the kernels and through the plain version, its
-   device operations (torch.profiler) and peak memory, each way.
+   beside its bound (`dense_bounds`), its plain function's ms and the
+   first design's ms (`EARLIER_DENSE_MS`), and its registers, spill
+   bytes, static shared memory and resident CTAs an SM; the batch's ms
+   through the kernels and through the plain version, its device
+   operations (torch.profiler; at most 5 through the kernels) and peak
+   memory, each way.
 5. The served path: `python -m osm_renderer_tpu_torch.cli.renderer_main`
    with backend = device, device = cuda, labels = yes on the minicity,
    under the import guard of phase 7; >= 32 distinct
@@ -130,6 +133,7 @@ Phases (any failure exits non-zero; no phase is skipped):
    (a 4096-tile cache, the default arena) decode to warm2's pixels; (c)
    parity_check --all-z 13 on the same city, labels off: worst <=
    1/255; (d) warmup, profile_serving, cold_profile, ktime and kdecomp
+   (the last two, which read torch.profiler, in processes of their own)
    at their defaults exit 0, and kdecomp's `full` is within 10 % of
    phase 3's device ms on bigcity z15.  Each sub-phase's wall time is
    printed with the card's name and power limit.
@@ -992,6 +996,23 @@ def _dense_scene(device, scene: str, precision: str):
             profiles.has_round_caps(), plan)
 
 
+# Device ms of the dense kernels' first design (a thread a stroke window
+# pixel, a thread eight blend pixels walking every group of its tile;
+# PERF.md section 5, NVIDIA H100 80GB HBM3 at 700 W), printed beside this
+# run's: (precision, batch) -> stroke, fill, blend.
+EARLIER_DENSE_MS = {
+    ("exact", "minicity_z15_x30"): (0.5288, 0.0333, 0.4008),
+    ("fast", "minicity_z15_x30"): (0.2544, 0.0220, 0.3514),
+    ("exact", "minicity_z15_2x_x12"): (0.4733, 0.0307, 0.6033),
+    ("fast", "minicity_z15_2x_x12"): (0.2338, 0.0227, 0.5504),
+    ("exact", "bigcity_z15_x97"): (2.1232, 0.1359, 1.5079),
+    ("fast", "bigcity_z15_x97"): (0.9930, 0.0783, 1.4844),
+}
+# Device operations a batch through the kernels: the pending memset and
+# the three kernels, and room for one more.
+DENSE_MAX_OPS = 5
+
+
 def _event_ms(fn, reps: int = 3) -> float:
     """Mean ms of `reps` calls after one warm call, CUDA events around
     the calls."""
@@ -1089,9 +1110,10 @@ def phase_dense(device, styler, smi, out):
     its kernels (csrc/dense.cu via ops/dense_cuda.py) on the card.
 
     (a) In both precisions, on the oversize-coordinate, icon-fill and
-    large-fill scenes, 4 minicity z15 tiles, 2 of them at @2x, every
-    minicity z15 tile, 12 at @2x, the first 16 and all 97 bigcity z15
-    tiles and the production stylesheet's minicity z15 tiles:
+    large-fill scenes, 4 minicity z15 tiles, 2 of them at @2x, 2 at @3x
+    and @4x (ts 768, 1024), every minicity z15 tile, 12 at @2x, the
+    first 16 and all 97 bigcity z15 tiles and the production
+    stylesheet's minicity z15 tiles:
     `render_batch` (the three kernels) byte-identical to
     `render_batch_plain` on the card and, but for the three largest
     batches, on the CPU, and each kernel to its plain function on the
@@ -1100,9 +1122,11 @@ def phase_dense(device, styler, smi, out):
     |diff| 0.  (b) The
     kernels' exact minicity z15 tiles within 1/255 of CpuDrawer, < 1 % of
     values off.  (c) On minicity z15 x30, its 12 tiles @2x and bigcity
-    z15 x97, in both precisions: each kernel's device ms beside its bound
-    and its plain function's ms, the batch's ms, device operations and
-    peak memory through the kernels, and through the plain version (its
+    z15 x97, in both precisions: each kernel's device ms beside its bound,
+    its plain function's ms, the first design's ms and its registers,
+    spill bytes, static shared memory and resident CTAs an SM; the
+    batch's ms, device operations (at most DENSE_MAX_OPS) and peak
+    memory through the kernels, and through the plain version (its
     operations and memory on minicity z15 x30; -1: not traced)."""
     import numpy as np
     import torch
@@ -1144,6 +1168,9 @@ def phase_dense(device, styler, smi, out):
             ("large_fill_scene", lambda: _dense_scene(device, "large_fill", precision), True),
             ("minicity_z15_x4", lambda: prepared(precision, z15[:4], 1), True),
             ("minicity_z15_2x_x2", lambda: prepared(precision, z15[:2], 2), True),
+            # Two tiles of middling load at the server's other scales.
+            ("minicity_z15_3x_x2", lambda: prepared(precision, z15[2:4], 3), True),
+            ("minicity_z15_4x_x2", lambda: prepared(precision, z15[2:4], 4), True),
             ("minicity_z15_x30", lambda: prepared(precision, z15, 1), False),
             ("minicity_z15_2x_x12", lambda: prepared(precision, z15[:12], 2), False),
             ("bigcity_z15_x16", lambda: prepared(precision, big15[:16], 1), True),
@@ -1196,8 +1223,8 @@ def phase_dense(device, styler, smi, out):
             where = (f"on the card and on the CPU (CPU ms={cpu_ms:.1f})" if on_cpu
                      else "on the card")
             log(f"  (a) {precision} {name}: T={got.shape[0]} ts={ts} chunk={chunk} "
-                f"chain={chain} e_max={pack.e_max}: kernels byte-identical to the plain version "
-                f"{where}, each kernel to its plain function; painted {painted:.3f}; "
+                f"chain={chain} e_max={pack.e_max} units={pack.n_units}: kernels byte-identical "
+                f"to the plain version {where}, each kernel to its plain function; painted {painted:.3f}; "
                 f"{time.perf_counter() - t_batch:.1f} s")
             if name in ("minicity_z15_x30", "minicity_z15_2x_x12", "bigcity_z15_x97"):
                 timed[(precision, name)] = (batch, canvas, ts, chunk, chain, plan, pack, sp_want,
@@ -1221,6 +1248,7 @@ def phase_dense(device, styler, smi, out):
         f"checked ({len(p.cpu_fallback_tiles)} left to the oracle), max |diff| {worst_px}, "
         f"worst tile {100 * frac:.4f} % of values off")
 
+    attrs = {p: DC.kernel_attributes(p) for p in ("exact", "fast")}
     for (precision, name), args in timed.items():
         t_batch = time.perf_counter()
         batch, canvas, ts, chunk, chain, plan, pack, sp_want, fp_want, pend = args
@@ -1256,10 +1284,15 @@ def phase_dense(device, styler, smi, out):
         plain_ops = plain_peak = -1
         if name == "minicity_z15_x30":
             plain_ops, plain_peak = _device_launches(plain), _peak_bytes(plain)
+        if ops > DENSE_MAX_OPS:
+            raise AssertionError(f"dense {precision} {name}: {ops} device operations a batch "
+                                 f"through the kernels, more than {DENSE_MAX_OPS}")
+        earlier = dict(zip(DC.KERNELS, EARLIER_DENSE_MS[(precision, name)]))
         row = dict(total_ms=total, total_dev_ms=total_dev, plain_ms=plain_total, launches=ops,
                    plain_launches=plain_ops, peak_bytes=peak, plain_peak_bytes=plain_peak,
                    kernels={k: dict(ms=dev_ms[k], plain_ms=plain_ms[k], bound_ms=bounds[k][0],
-                                    bound_by=bounds[k][1]) for k in dev_ms})
+                                    bound_by=bounds[k][1], earlier_ms=earlier[k])
+                            for k in dev_ms})
         out.setdefault("timed", {})[(precision, name)] = row
         log(f"  (c) {smi}: {precision} {name} (C={batch.chunk_kind.shape[1]}, "
             f"{pack.n_strokes} segments over {pack.stroke_px} px, {pack.n_fills} fills over "
@@ -1269,10 +1302,12 @@ def phase_dense(device, styler, smi, out):
             f"{peak / 2**20:.1f} MiB (plain {max(plain_peak, 0) / 2**20:.1f}); "
             f"{time.perf_counter() - t_batch:.1f} s")
         for k in DC.KERNELS:
-            r = row["kernels"][k]
-            log(f"      {k}: {r['ms']:.4f} ms device, bound {r['bound_ms']:.6f} ms "
-                f"({r['bound_by']}), {100 * r['bound_ms'] / r['ms']:.2f} % of it; plain "
-                f"function {r['plain_ms']:.2f} ms")
+            r, a = row["kernels"][k], attrs[precision][k]
+            log(f"      {k}: {r['ms']:.4f} ms device (first design {r['earlier_ms']:.4f}), "
+                f"bound {r['bound_ms']:.6f} ms ({r['bound_by']}), "
+                f"{100 * r['bound_ms'] / r['ms']:.2f} % of it; plain function "
+                f"{r['plain_ms']:.2f} ms; {a['regs']} registers, {a['local_bytes']} spill "
+                f"bytes, {a['shared_bytes']} static shared bytes, {a['blocks_per_sm']} CTAs an SM")
     out["worst"] = worst
 
 
@@ -1734,6 +1769,20 @@ def _run_tool(main_fn, argv):
     return rc, lines
 
 
+def _run_tool_process(module, argv):
+    """`python -m osm_renderer_tpu_torch.tools.<module>` in a fresh
+    process -> (exit status, its stdout lines), each line logged
+    indented.  The tools that read torch.profiler run so: after the
+    sweep, this process's profiler once saw no device event in three
+    traces in a row, and a fresh process starts with its own."""
+    proc = subprocess.run([sys.executable, "-m", f"osm_renderer_tpu_torch.tools.{module}",
+                           *argv], cwd=ROOT, capture_output=True, text=True, timeout=600)
+    lines = proc.stdout.strip().splitlines()
+    for line in lines + (proc.stderr.strip().splitlines()[-20:] if proc.returncode else []):
+        log(f"    | {line}")
+    return proc.returncode, lines
+
+
 def phase_tools(smi, device, phase3_dev_ms, out):
     """The port's tools at scale (osm_renderer_tpu_torch/tools/):
     (a) scale_sweep --labels on the 112-block city, 915 tiles through a
@@ -1744,16 +1793,15 @@ def phase_tools(smi, device, phase3_dev_ms, out):
     kernel launched; (b) the same tiles on an unpressured control service
     (4096-tile cache, the default arena) decode to warm2's pixels; (c)
     parity_check --all-z 13 on that city, labels off: worst <= 1/255;
-    (d) warmup, profile_serving, cold_profile, ktime and kdecomp at their
-    defaults return 0, and kdecomp's `full` is within 10 % of phase 3's
-    device ms on bigcity z15."""
+    (d) warmup, profile_serving, cold_profile, ktime and kdecomp (these
+    two as `python -m` processes: `_run_tool_process`) at their defaults
+    exit 0, and kdecomp's `full` is within 10 % of phase 3's device ms on
+    bigcity z15."""
     import numpy as np
 
     from osm_renderer_tpu_torch.ops import render_cuda, rle_cuda
     from osm_renderer_tpu_torch.tools import (
         cold_profile,
-        kdecomp,
-        ktime,
         parity_check,
         profile_serving,
         scale_sweep,
@@ -1825,11 +1873,12 @@ def phase_tools(smi, device, phase3_dev_ms, out):
             ("warmup", warmup.main, [MINI_BIN, sheet]),
             ("profile_serving", profile_serving.main, []),
             ("cold_profile", cold_profile.main, []),
-            ("ktime", ktime.main, []),
-            ("kdecomp", kdecomp.main, [])):
+            ("ktime", None, []),
+            ("kdecomp", None, [])):
         t0 = time.perf_counter()
         log(f"  (d) {name}")
-        rc, lines = _run_tool(main_fn, argv)
+        rc, lines = (_run_tool(main_fn, argv) if main_fn is not None
+                     else _run_tool_process(name, argv))
         if rc != 0:
             raise AssertionError(f"(d) {name} exited {rc}")
         if name == "kdecomp":

@@ -7,31 +7,31 @@
 // port's plain version osm_renderer_tpu_torch/ops/render_dense.py, whose
 // functions each device function below transcribes (file:line there):
 //
-// 1. dense_stroke_alpha: one thread per pixel of every stroke segment's
-//    window (BatchPlan.strokes), one launch.  A thread finds its item by
-//    binary search in the host's prefix sums of the window areas and
-//    evaluates _stroke_segment_alpha (:248, the reference's :158):
-//    _stroke_opacity (:213), band_start's two fixed 6-step corrections
-//    (:306-317), start_alive (:319) and, with `chain`, the 11-step walk
-//    chain (:343).  plan.stroke_passes only bounds the plain version's
+// 1. dense_stroke_alpha: one warp a work unit, a rectangle of at most
+//    UNIT_SIDE x UNIT_SIDE pixels of one stroke segment's window
+//    (BatchPlan.strokes, cut by ops/dense_cuda.py::pack_plan).  It
+//    evaluates _stroke_segment_alpha (:253, the reference's :158):
+//    _stroke_opacity (:218), band_start (:311) with its two 6-step
+//    corrections, start_alive (:324) and, with `chain`, the 11-step walk
+//    chain (:356).  plan.stroke_passes only bounds the plain version's
 //    temporaries; the kernel ignores it.
 // 2. dense_fill_alpha: one warp per fill window row (BatchPlan.fills, all
-//    edge buckets E in one launch).  The warp evaluates _fill_rows (:391)
+//    edge buckets E in one launch).  The warp evaluates _fill_rows (:429)
 //    for the row's E lanes, one lane a thread, compacts the active edges
 //    in lane order with a ballot into its own list (shared memory, or a
 //    global scratch slice past SMEM_EDGES lanes), ranks them by counting
-//    and then runs _fill_pixels (:432) for the row's pixels over the
+//    and then runs _fill_pixels (:442) for the row's pixels over the
 //    active list only.
-// 3. dense_blend_finalize: one CTA per (tile, band of BAND_PX pixels);
-//    each thread owns PX pixels' RGBA in registers, so the f64 canvas
-//    never lives in device memory.  It walks its tile's groups in paint
-//    order (the host's per-tile list sorted by chunk index), skips those
-//    whose window misses the band, applies _color_blend (:185) or, for a
-//    group with a pattern, _pattern_blend (:193) inside the window, and
-//    writes _finalize_rgb (:443) as (T, ts, ts, 3) u8.  BatchPlan.levels
-//    only groups blends of disjoint pixels for the plain version; a
-//    pixel's blend sequence is the same in paint order, so the kernel
-//    does not need them.
+// 3. dense_blend_finalize: one CTA per (tile, RECT x RECT pixels), one
+//    warp per BLEND_ROWS rows of it, each lane one column, the RGBA of
+//    its BLEND_ROWS pixels in registers (the f64 canvas never lives in
+//    device memory).  It applies _color_blend (:190) or, for a group
+//    with a pattern, _pattern_blend (:198) in paint order (the host's
+//    per-tile group list sorted by chunk index) and writes
+//    _finalize_rgb (:453) as (T, ts, ts, 3) u8.  BatchPlan.levels only
+//    groups blends of disjoint pixels for the plain version; a pixel's
+//    blend sequence is the same in paint order, so the kernel does not
+//    need them.
 //
 // Pending alpha.  Both alpha kernels max-reduce into the plan's flat
 // pending buffer at pend_off + y * pend_w + x, as scatter_reduce_(...,
@@ -51,24 +51,27 @@
 // * The five fused multiply-adds.  The reference's CPU compiler (XLA)
 //   contracts a multiply feeding an add into one FMA at exactly these
 //   sites, which the plain version emulates with render_dense._fma:
-//   the start distance's _sq_diff (:182), both channels of the colour
-//   blend (:189-190), the pattern blend (:196-197) and the cap-shrunk
-//   half-width (:243).  Each is a real fma()/fmaf() here.  Everything
+//   the start distance's _sq_diff (:187), both channels of the colour
+//   blend (:194-195), the pattern blend (:201-202) and the cap-shrunk
+//   half-width (:248).  Each is a real fma()/fmaf() here.  Everything
 //   else stays unfused: ops/build.py passes -fmad=false; never use
 //   --use_fast_math.
-// * _sqrt (:97) must round correctly: f64 sqrt does; f32 sqrtf does under
-//   nvcc's default -prec-sqrt=true, and `/` is IEEE under -prec-div=true.
-// * Floor division.  torch.div(..., rounding_mode="floor") (:154) floors
+// * _sqrt (:102) must round correctly: f64 sqrt does; f32 sqrtf does
+//   under nvcc's default -prec-sqrt=true, and `/` is IEEE under
+//   -prec-div=true.
+// * Floor division.  torch.div(..., rounding_mode="floor") (:163) floors
 //   where C's `/` truncates: floor_div corrects for sign as torch's
-//   div_floor_integer does, and ceil_div2 (:171) negates around it.  The
+//   div_floor_integer does, and ceil_div2 (:176) negates around it.  The
 //   fast path keeps the reference's f32 estimate and its four integer
-//   corrections (:159-167).  Int64 `/` is a software routine on the GPU,
-//   and a chained stroke pixel runs many of them: the first cost of this
-//   kernel (see PERF.md).
+//   corrections (:164-172).  Every division of the stroke rules is by
+//   the segment's two_mx; the exact path divides by it through
+//   FloorDiv64, a reciprocal made once a segment (a multiply-high and
+//   one correction step), which gives floor division's quotient for
+//   every int64 numerator, wrapped values included.
 // * Integer overflow.  Signed overflow is undefined in C++ and wraps in
 //   torch.  Under FAST_COORD_BOUND (draw/primitives.py, checked by
 //   parallel/renderer.py before a fast batch) and WINDOW_COORD_BOUND
-//   (render_dense.py:47) every product of _stroke_segment_alpha and
+//   (render_dense.py:52) every product of _stroke_segment_alpha and
 //   _fill_rows stays in range (fast: |coord| < 12000, so dx*dx + dy*dy <
 //   1.2e9 and A = 2*mn_d*n0 + 2*mx_d*m0 + mx_d - 1 < 1.3e9, under 2^31),
 //   but past them (geometry the plan evaluates over the whole tile) it
@@ -78,17 +81,62 @@
 // * Casts.  .to(fi) of a float truncates as a C cast does; f2i spells out
 //   the card's conversion (NaN -> 0, saturation past the range), which
 //   is what torch's CUDA .to() does.  Windows come from the plan, which
-//   encodes geometry past WINDOW_COORD_BOUND as a whole-tile window; the
-//   kernels add no rule of their own.
+//   encodes geometry past WINDOW_COORD_BOUND as a whole-tile window.
 //
-// What bounds it on the H100.  Operations, not bytes: a chained exact
-// stroke pixel runs a few hundred int64 divisions and f64 operations
-// (the H100's f64 rate outside the tensor cores is half its f32 rate),
-// while a batch's inputs are a few MB.  The design keeps the work to what
-// the plain version does per pixel and no more: a pixel that is not
-// in_line stops after its opacity, the chain stops at its first dead
-// step or once jp >= jv, and fill pixels loop over a row's active edges
-// only.  Making the divisions cheap is a later PR.
+// What bounds each kernel on the H100, and what the design does about it:
+//
+// * dense_stroke_alpha: operations.  The pixel-level work is the f64
+//   centre and start distances and _stroke_opacity (two or three square
+//   roots, an fmod and a few divisions a pixel).  The rest of
+//   _stroke_segment_alpha depends on the segment and the band index b
+//   alone, not on the pixel: band_start(b) (a dozen floor divisions),
+//   start_alive(band) and the walk chain's 11 start_alive evaluations.
+//   A window has about L x 2W pixels but only about L + W bands, so a
+//   kernel that evaluates them a pixel repeats each band's work across
+//   the stroke's width.  So each warp takes one unit and
+//   (a) builds the segment's constants once (make_seg; every lane holds
+//       the same copy);
+//   (b) pass 1: evaluates each pixel's centre distance cd, keeps (ballot
+//       and prefix, in shared memory) the pixels with cd < lim, where
+//       lim = fmax(sqrt(hw * hw) + 0.5, 1) >= feather_to (hlw never
+//       exceeds sqrt(hw * hw): the cap shrink only lowers it, and every
+//       step rounds monotonically), so every pixel of cd_op > 0 is kept
+//       and no dropped pixel has an alpha above 0; and reduces the
+//       kept pixels' band coordinate A to its minimum and maximum;
+//   (c) the band table: for b in [max(floor(A_min / two_mx), 0),
+//       min(floor(A_max / two_mx) + 1, hK)], which holds T and T + 1 of
+//       every kept pixel, the lanes compute in parallel, once a band,
+//       band_start(b).mn, start_alive(band) and, for a chained segment
+//       (chain and a profile row with round caps), the first dead step
+//       of the walk for mul = +1 and -1 (band_rule); chain_alive(b, mul,
+//       jv) is then exactly "first dead step >= min(jv, 12)";
+//   (d) pass 3: the kept pixels only, with every lane busy: cd,
+//       start_distance, _stroke_opacity, one division for T, and table
+//       lookups for bands T and T + 1 (stroke_alpha_table).
+//   The rule for the table: a unit uses it when every coordinate of its
+//   segment is under WINDOW_COORD_BOUND and its band range fits NB_CAP.
+//   Under the bound nothing wraps, and a unit of h x w pixels spans at
+//   most h + w bands (T moves by at most one a pixel step, as mn_d <=
+//   mx_d), so NB_CAP = 2 * UNIT_SIDE always fits.  A unit past the bound
+//   (the oversize scene) evaluates band_start, start_alive and the walk
+//   per pixel (stroke_alpha).  A pixel
+//   whose band the table lacks (the rule makes that impossible) falls
+//   back to stroke_alpha as well.
+// * dense_fill_alpha: bytes on paper (each fill's edges and its window's
+//   pending values), latency in practice: one warp a window row.
+// * dense_blend_finalize: bytes (the pending values in, the u8 tiles
+//   out), and the latency of a walk over the tile's group descriptors
+//   with one dependent load a group, were every thread to make it.
+//   Instead each warp copies its tile's descriptors into shared memory 32
+//   at a time with coalesced loads, keeps (ballot and prefix, paint
+//   order kept) only the groups whose window meets its BLEND_ROWS x
+//   RECT pixels, with their colour and pattern, and walks that short
+//   list.  Pixel offsets within a window are 32-bit, the group's base
+//   64-bit.  Four pixels a lane fit in 64 registers (f64) or 48 (f32),
+//   so four or five 256-thread CTAs fit an SM.  The u8 RGB rows go through shared memory
+//   and out as 16-byte stores when the tile's rows allow (ts % 32 == 0,
+//   an aligned buffer), else one byte at a time with the tile's edge
+//   masked.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -97,25 +145,43 @@
 namespace {
 
 constexpr unsigned FULL_MASK = 0xFFFFFFFFu;
-constexpr int STROKE_THREADS = 256;
+constexpr int STROKE_WARPS = 8;
+constexpr int STROKE_THREADS = 32 * STROKE_WARPS;
+// Resident CTAs an SM each kernel's register budget is cut for (the
+// fastest on the H100 of those tried; a few bytes spill): the f64 stroke
+// kernel needs ~170 registers uncut, one CTA.
+template <typename F> constexpr int stroke_min_blocks() { return sizeof(F) == 8 ? 2 : 4; }
+template <typename F> constexpr int blend_min_blocks() { return sizeof(F) == 8 ? 4 : 5; }
+constexpr int UNIT_SIDE = 32;                 // a stroke unit: at most UNIT_SIDE x UNIT_SIDE px
+constexpr int NB_CAP = 2 * UNIT_SIDE;         // bands a unit's table holds
 constexpr int FILL_WARPS = 4;                 // warps per fill CTA
 constexpr int SMEM_EDGES = 512;               // a warp's active-list capacity in shared memory
-constexpr int BLEND_THREADS = 256;
-constexpr int PX = 8;                         // pixels per blend thread
-constexpr int BAND_PX = BLEND_THREADS * PX;   // pixels per blend CTA
+constexpr int BLEND_WARPS = 8;
+constexpr int BLEND_THREADS = 32 * BLEND_WARPS;
+constexpr int RECT = 32;                      // a blend CTA's RECT x RECT pixels, a lane a column
+constexpr int BLEND_ROWS = RECT / BLEND_WARPS;  // rows a blend warp owns
 constexpr int JMAX_CHAIN = 12;                // the walk chain checks jp = 1 .. 11
+// render_dense.WINDOW_COORD_BOUND: under it no product of the stroke
+// rules wraps (the band table's rule).
+constexpr int64_t EXACT_COORD_BOUND = int64_t(1) << 28;
+constexpr int64_t FAST_COORD_BOUND = 12000;
+// A stroke unit's band table as the kernel writes it for the tests
+// (Params.tables): mode, b_lo, bands, lookups it lacked, then NB_CAP
+// minor coordinates and NB_CAP rule words.
+enum { UNIT_EMPTY = 0, UNIT_TABLE = 1, UNIT_PER_PIXEL = 2 };
+constexpr int TABLE_COLS = 4 + 2 * NB_CAP;
 
 // Pointer slots of the entry points' `ptrs` array (ops/dense_cuda.py
 // fills it in this order).
 enum {
   P_GEOM, P_TRAV, P_GPROF, P_COLOR, P_OPACITY, P_HW, P_PAT, P_PROFILES, P_PROF_TOTAL,
-  P_PATTERNS, P_CANVAS, P_STROKES, P_STROKE_PX, P_FILLS, P_FILL_ROWS, P_GROUPS, P_TILE_PTR,
-  P_PENDING, P_OUT, P_SCRATCH, N_PTRS
+  P_PATTERNS, P_CANVAS, P_STROKES, P_FILLS, P_FILL_ROWS, P_GROUPS, P_TILE_PTR,
+  P_PENDING, P_OUT, P_SCRATCH, P_UNITS, P_TABLES, N_PTRS
 };
 // Size slots of the entry points' `dims` array.
 enum {
-  D_T, D_G, D_C, D_NP, D_DS, D_NPAT, D_TS, D_NS, D_NPX, D_NF, D_NROWS, D_EMAX, D_NG,
-  D_FILL_BLOCKS, N_DIMS
+  D_T, D_G, D_C, D_NP, D_DS, D_NPAT, D_TS, D_NS, D_NF, D_NROWS, D_EMAX, D_NG,
+  D_FILL_BLOCKS, D_NU, N_DIMS
 };
 // Columns of the packed items (ops/dense_cuda.py: STROKE_COLS, ...).
 enum { S_T, S_C, S_SLOT, S_Y0, S_X0, S_H, S_W, S_OFF, S_PW, STROKE_COLS };
@@ -144,6 +210,10 @@ struct Wrap {
   friend __host__ __device__ bool operator>=(Wrap a, Wrap b) { return a.v >= b.v; }
   friend __host__ __device__ bool operator==(Wrap a, Wrap b) { return a.v == b.v; }
   friend __host__ __device__ bool operator!=(Wrap a, Wrap b) { return a.v != b.v; }
+  static __host__ __device__ constexpr Wrap max() { return Wrap((I)(~(U)0 >> 1)); }
+  static __host__ __device__ constexpr Wrap min() {
+    return Wrap((I)(((U)1) << (8 * sizeof(I) - 1)));
+  }
 };
 
 template <typename T> struct Same { typedef T type; };
@@ -200,10 +270,67 @@ __host__ __device__ __forceinline__ Wrap<I> ceil_div2(Wrap<I> a, Wrap<I> b) {
   return -floor_div(-a, b);
 }
 
-template <typename I>
-__host__ __device__ __forceinline__ Wrap<I> ceil_div(Wrap<I> a, Wrap<I> b) {
-  return floor_div(a + b - 1, b);
+__host__ __device__ __forceinline__ uint64_t umulhi64(uint64_t a, uint64_t b) {
+#ifdef __CUDA_ARCH__
+  return __umul64hi(a, b);
+#else
+  return (uint64_t)(((unsigned __int128)a * b) >> 64);
+#endif
 }
+
+// Floor division by a fixed divisor d > 0, for every int64 numerator n.
+// With u = n + 2^63 (the sign bit flipped: 0 <= u < 2^64) and 2^63 =
+// a * d + b (0 <= b < d), floor(n / d) = floor(u / d) - a - (r < b),
+// where r = u - floor(u / d) * d.  floor(u / d) comes from m =
+// floor((2^64 - 1) / d): u * m / 2^64 lies in (u / d - 1, u / d], so
+// umulhi(u, m) is floor(u / d) or one less, and one correction step
+// (r >= d) finds it.
+struct FloorDiv64 {
+  uint64_t d, m, a, b;
+  FloorDiv64() = default;
+  __host__ __device__ explicit FloorDiv64(int64_t divisor) {
+    d = (uint64_t)divisor;
+    m = ~(uint64_t)0 / d;
+    const uint64_t half = (uint64_t)1 << 63;
+    a = umulhi64(half, m);
+    b = half - a * d;
+    if (b >= d) {
+      ++a;
+      b -= d;
+    }
+  }
+  __host__ __device__ __forceinline__ Wrap<int64_t> operator()(Wrap<int64_t> n) const {
+    const uint64_t u = (uint64_t)n.v ^ ((uint64_t)1 << 63);
+    uint64_t q = umulhi64(u, m), r = u - q * d;
+    if (r >= d) {
+      ++q;
+      r -= d;
+    }
+    return Wrap<int64_t>((int64_t)(q - a) - (r < b ? 1 : 0));
+  }
+};
+
+// Floor division by the segment's two_mx: the reciprocal in the exact
+// precision, the reference's estimate (floor_div) in the fast one.
+template <typename I> struct MxDiv;
+template <>
+struct MxDiv<int64_t> {
+  FloorDiv64 f;
+  MxDiv() = default;
+  __host__ __device__ explicit MxDiv(Wrap<int64_t> d) : f(d.v) {}
+  __host__ __device__ __forceinline__ Wrap<int64_t> operator()(Wrap<int64_t> n) const {
+    return f(n);
+  }
+};
+template <>
+struct MxDiv<int32_t> {
+  Wrap<int32_t> d;
+  MxDiv() = default;
+  __host__ __device__ explicit MxDiv(Wrap<int32_t> dv) : d(dv) {}
+  __host__ __device__ __forceinline__ Wrap<int32_t> operator()(Wrap<int32_t> n) const {
+    return floor_div(n, d);
+  }
+};
 
 __host__ __device__ __forceinline__ float xfma(float a, float b, float c) { return fmaf(a, b, c); }
 __host__ __device__ __forceinline__ double xfma(double a, double b, double c) {
@@ -221,13 +348,14 @@ __host__ __device__ __forceinline__ float xabs(float a) { return fabsf(a); }
 __host__ __device__ __forceinline__ double xabs(double a) { return fabs(a); }
 
 // --------------------------------------------------------------------------
-// Strokes (render_dense.py:200-383)
+// Strokes (render_dense.py:205-388)
 // --------------------------------------------------------------------------
 
 // One segment's constants (the per-segment half of _stroke_segment_alpha).
 template <typename I, typename F>
 struct Seg {
   Wrap<I> p1x, p1y, mn0, mx0, mn_d, mx_d, mn_i, mx_i, numer_const, sdx, sdy, two_mx, K, hK;
+  MxDiv<I> div_mx;  // floor division by two_mx
   bool swap, degenerate, any_orig;
   F denom, ratio, hw, opacity, prof_total, traveled;
   const F* prof;  // (DS, 8)
@@ -236,12 +364,18 @@ struct Seg {
 
 template <typename I, typename F>
 __host__ __device__ __forceinline__ Wrap<I> c_of(const Seg<I, F>& s, Wrap<I> k) {
-  return floor_div(2 * k * s.mn_d + s.mx_d - 1, s.two_mx);
+  return s.div_mx(2 * k * s.mn_d + s.mx_d - 1);
 }
 
 template <typename I, typename F>
 __host__ __device__ __forceinline__ Wrap<I> h_of(const Seg<I, F>& s, Wrap<I> k) {
-  return k + floor_div(2 * c_of(s, k) * s.mn_d + s.mx_d - 1, s.two_mx);
+  return k + s.div_mx(2 * c_of(s, k) * s.mn_d + s.mx_d - 1);
+}
+
+// ceil(a / two_mx), as the walk chain's ceil_div (:353).
+template <typename I, typename F>
+__host__ __device__ __forceinline__ Wrap<I> ceil_div_mx(const Seg<I, F>& s, Wrap<I> a) {
+  return s.div_mx(a + s.two_mx - 1);
 }
 
 template <typename I, typename F>
@@ -266,6 +400,7 @@ __host__ __device__ Seg<I, F> make_seg(Wrap<I> p1x, Wrap<I> p1y, Wrap<I> p2x, Wr
   s.sdy = p2y - p1y;
   s.denom = xsqrt((F)(dx * dx + dy * dy).v);
   s.two_mx = 2 * s.mx_d;
+  s.div_mx = MxDiv<I>(s.two_mx);
   s.K = s.mx_d;
   s.hK = h_of(s, s.K);
   s.ratio = (F)(s.mx_d * s.mx_d).v / (F)(s.mx_d * s.mx_d + s.mn_d * s.mn_d).v;
@@ -297,7 +432,7 @@ struct Opacity {
   bool alive;  // in_line: cd_op > 0
 };
 
-// _stroke_opacity (render_dense.py:213).
+// _stroke_opacity (render_dense.py:218).
 template <typename I, typename F>
 __host__ __device__ Opacity<F> stroke_opacity(const Seg<I, F>& s, F cd, F start_dist) {
   const F inf = (F)INFINITY;
@@ -320,12 +455,27 @@ __host__ __device__ Opacity<F> stroke_opacity(const Seg<I, F>& s, F cd, F start_
   // Empty profile (all rows disabled): plain opacity 1, no cap shrink.
   sd_op = any_rows ? sd_op : (F)1;
   cap_dist = isinf(cap_dist) ? (F)0 : cap_dist;
-  F hlw = xsqrt(xfma(-cap_dist, cap_dist, s.hw * s.hw));  // FMA site (:243)
+  F hlw = xsqrt(xfma(-cap_dist, cap_dist, s.hw * s.hw));  // FMA site (:248)
   F cd_op = opacity_by_center_distance(cd, hlw);
   Opacity<F> o;
   o.op = xfmin(sd_op, cd_op);
   o.alive = cd_op > (F)0;
   return o;
+}
+
+// The distance of (x, y) from the segment's line.
+template <typename I, typename F>
+__host__ __device__ __forceinline__ F center_distance(const Seg<I, F>& s, Wrap<I> x, Wrap<I> y) {
+  Wrap<I> raw = s.numer_const + s.sdy * x - s.sdx * y;
+  return xabs((F)raw.v) / s.denom;
+}
+
+// A pixel's band coordinate A (:297): T = floor(A / two_mx) is its band.
+template <typename I, typename F>
+__host__ __device__ __forceinline__ Wrap<I> band_coord(const Seg<I, F>& s, Wrap<I> MN,
+                                                       Wrap<I> MX) {
+  Wrap<I> n0 = (MN - s.mn0) * s.mn_i, m0 = (MX - s.mx0) * s.mx_i;
+  return 2 * s.mn_d * n0 + s.two_mx * m0 + (s.mx_d - 1);
 }
 
 // The start distance at (x, y) given its centre distance cd.
@@ -336,7 +486,7 @@ __host__ __device__ __forceinline__ F start_distance(const Seg<I, F>& s, Wrap<I>
     // Exact path: the reference's rounding chain (line.rs:120-121).
     F dxp = (F)(x - s.p1x).v, dyp = (F)(y - s.p1y).v;
     F long_d = xsqrt(dxp * dxp + dyp * dyp);
-    return xsqrt(xfmax(xfma(long_d, long_d, -(cd * cd)), (F)0));  // FMA site (:182)
+    return xsqrt(xfmax(xfma(long_d, long_d, -(cd * cd)), (F)0));  // FMA site (:187)
   } else {
     Wrap<I> dot = (x - s.p1x) * s.sdx + (y - s.p1y) * s.sdy;
     return xabs((F)dot.v) / s.denom;
@@ -346,8 +496,7 @@ __host__ __device__ __forceinline__ F start_distance(const Seg<I, F>& s, Wrap<I>
 template <typename I, typename F>
 __host__ __device__ bool start_alive(const Seg<I, F>& s, Wrap<I> s_mn, Wrap<I> s_mx) {
   Wrap<I> sx = s.swap ? s_mx : s_mn, sy = s.swap ? s_mn : s_mx;
-  Wrap<I> raw = s.numer_const + s.sdy * sx - s.sdx * sy;
-  F cd = xabs((F)raw.v) / s.denom;
+  F cd = center_distance(s, sx, sy);
   return stroke_opacity(s, cd, start_distance(s, sx, sy, cd)).alive;
 }
 
@@ -356,15 +505,15 @@ struct Band {
   Wrap<I> mn, mx, c_sel;
 };
 
+// band_start (:311).  Each correction loop stops at its first false
+// test: k is then unchanged, so the remaining steps would repeat it.
 template <typename I, typename F>
 __host__ __device__ Band<I> band_start(const Seg<I, F>& s, Wrap<I> b) {
   Wrap<I> bc = wmin(wmax(b, 0), s.hK);
   Wrap<I> k = f2i<I>((F)bc.v * s.ratio);
   k = wmin(wmax(k, 0), s.K);
-  for (int i = 0; i < 6; ++i)
-    if (k > 0 && h_of(s, k) > bc) k = k - 1;
-  for (int i = 0; i < 6; ++i)
-    if (k < s.K && h_of(s, k + 1) <= bc) k = k + 1;
+  for (int i = 0; i < 6 && k > 0 && h_of(s, k) > bc; ++i) k = k - 1;
+  for (int i = 0; i < 6 && k < s.K && h_of(s, k + 1) <= bc; ++i) k = k + 1;
   bool is_gap = h_of(s, k) != bc;
   Band<I> out;
   out.c_sel = is_gap ? c_of(s, k + 1) : c_of(s, k);
@@ -373,16 +522,17 @@ __host__ __device__ Band<I> band_start(const Seg<I, F>& s, Wrap<I> b) {
   return out;
 }
 
-// The walk chain: every perpendicular pixel before jv must be in-line.
+// The walk chain (:356): every perpendicular pixel before jv must be
+// in-line.
 template <typename I, typename F>
 __host__ __device__ bool chain_alive(const Seg<I, F>& s, Band<I> b,
                                      typename Same<Wrap<I>>::type mul, Wrap<I> jv) {
   Wrap<I> tcm = 2 * b.c_sel * s.mn_d;
-  Wrap<I> G = wmax(ceil_div(tcm - s.mx_d, s.two_mx), 0);
+  Wrap<I> G = wmax(ceil_div_mx(s, tcm - s.mx_d), 0);
   Wrap<I> e0 = mul * (tcm - s.two_mx * G);
   for (int jp = 1; jp < JMAX_CHAIN; ++jp) {
     if (Wrap<I>(jp) >= jv) break;  // this step and every later one pass
-    Wrap<I> Cjp = wmax(ceil_div(e0 + 2 * Wrap<I>(jp) * s.mn_d - s.mx_d, s.two_mx), 0);
+    Wrap<I> Cjp = wmax(ceil_div_mx(s, e0 + 2 * Wrap<I>(jp) * s.mn_d - s.mx_d), 0);
     Wrap<I> minor = b.mn + mul * s.mn_i * jp;
     Wrap<I> major = b.mx - mul * s.mx_i * Cjp;
     if (!start_alive(s, minor, major)) return false;
@@ -390,17 +540,65 @@ __host__ __device__ bool chain_alive(const Seg<I, F>& s, Band<I> b,
   return true;
 }
 
-// _stroke_segment_alpha (render_dense.py:248) at one pixel.
+// The walk's first dead step jp in 1 .. 11 for `mul`, JMAX_CHAIN when
+// every step is alive: chain_alive(b, mul, jv) is this >= min(jv, 12).
+template <typename I, typename F>
+__host__ __device__ int first_dead_step(const Seg<I, F>& s, Band<I> b,
+                                        typename Same<Wrap<I>>::type mul) {
+  Wrap<I> tcm = 2 * b.c_sel * s.mn_d;
+  Wrap<I> G = wmax(ceil_div_mx(s, tcm - s.mx_d), 0);
+  Wrap<I> e0 = mul * (tcm - s.two_mx * G);
+  for (int jp = 1; jp < JMAX_CHAIN; ++jp) {
+    Wrap<I> Cjp = wmax(ceil_div_mx(s, e0 + 2 * Wrap<I>(jp) * s.mn_d - s.mx_d), 0);
+    Wrap<I> minor = b.mn + mul * s.mn_i * jp;
+    Wrap<I> major = b.mx - mul * s.mx_i * Cjp;
+    if (!start_alive(s, minor, major)) return jp;
+  }
+  return JMAX_CHAIN;
+}
+
+// One band's rules, as a word: bit 0 start_alive(band); for a chained
+// segment and a live band, bits 1-4 and 5-8 the first dead step for mul
+// = +1 and -1.  *mn: band_start(b).mn.
+template <typename I, typename F>
+__host__ __device__ unsigned band_rule(const Seg<I, F>& s, Wrap<I> b, bool chained, Wrap<I>* mn) {
+  Band<I> bt = band_start(s, b);
+  *mn = bt.mn;
+  if (!start_alive(s, bt.mn, bt.mx)) return 0;
+  if (!chained) return 1;
+  return 1u | (unsigned)first_dead_step(s, bt, 1) << 1 | (unsigned)first_dead_step(s, bt, -1) << 5;
+}
+
+// A unit's band table: bands b_lo .. b_lo + nb - 1.
+template <typename I>
+struct BandTable {
+  const I* mn;
+  const uint16_t* rule;
+  Wrap<I> b_lo;
+  int nb;
+  // b's row, or -1 when the table lacks it.
+  __host__ __device__ int row(Wrap<I> b) const {
+    Wrap<I> j = b - b_lo;
+    return j >= 0 && j < Wrap<I>((I)nb) ? (int)j.v : -1;
+  }
+  __host__ __device__ bool alive(int j) const { return rule[j] & 1; }
+  // chain_alive(b, mul, jv): mul = +1 when plus.
+  __host__ __device__ bool chain_ok(int j, bool plus, Wrap<I> jv) const {
+    int dead = (rule[j] >> (plus ? 1 : 5)) & 15;
+    return Wrap<I>((I)dead) >= wmin(jv, Wrap<I>((I)JMAX_CHAIN));
+  }
+};
+
+// _stroke_segment_alpha (render_dense.py:253) at one pixel, the band
+// rules evaluated where the pixel needs them.
 template <typename I, typename F>
 __host__ __device__ F stroke_alpha(const Seg<I, F>& s, Wrap<I> x, Wrap<I> y, bool chain) {
-  Wrap<I> raw = s.numer_const + s.sdy * x - s.sdx * y;
-  F cd = xabs((F)raw.v) / s.denom;
+  F cd = center_distance(s, x, y);
   Opacity<F> o = stroke_opacity(s, cd, start_distance(s, x, y, cd));
   if (!o.alive || s.degenerate) return (F)0;
-  Wrap<I> MN = s.swap ? y : x, MX = s.swap ? x : y;
-  Wrap<I> n0 = (MN - s.mn0) * s.mn_i, m0 = (MX - s.mx0) * s.mx_i;
-  Wrap<I> A = 2 * s.mn_d * n0 + s.two_mx * m0 + (s.mx_d - 1);
-  Wrap<I> T = floor_div(A, s.two_mx);
+  Wrap<I> MN = s.swap ? y : x;
+  Wrap<I> A = band_coord(s, MN, s.swap ? x : y);
+  Wrap<I> T = s.div_mx(A);
   bool edge_band = A - T * s.two_mx == s.two_mx - 1;
   bool chained = chain && s.any_orig;
 
@@ -421,8 +619,40 @@ __host__ __device__ F stroke_alpha(const Seg<I, F>& s, Wrap<I> x, Wrap<I> y, boo
   return s.opacity * o.op;
 }
 
+// The same function, the band rules read from the unit's table.  A
+// pixel whose band the table lacks runs stroke_alpha (*missed counts it).
+template <typename I, typename F>
+__host__ __device__ F stroke_alpha_table(const Seg<I, F>& s, Wrap<I> x, Wrap<I> y, bool chain,
+                                         const BandTable<I>& tab, int* missed) {
+  F cd = center_distance(s, x, y);
+  Opacity<F> o = stroke_opacity(s, cd, start_distance(s, x, y, cd));
+  if (!o.alive || s.degenerate) return (F)0;
+  Wrap<I> MN = s.swap ? y : x;
+  Wrap<I> A = band_coord(s, MN, s.swap ? x : y);
+  Wrap<I> T = s.div_mx(A);
+  bool edge_band = A - T * s.two_mx == s.two_mx - 1;
+  bool need_T = A >= 0 && T <= s.hK;
+  bool need_N = edge_band && A + 1 >= 0 && T + 1 <= s.hK;
+  int jT = tab.row(T), jN = tab.row(T + 1);
+  if ((need_T && jT < 0) || (need_N && jN < 0)) {
+    ++*missed;
+    return stroke_alpha(s, x, y, chain);
+  }
+  bool chained = chain && s.any_orig;
+  if (need_T && tab.alive(jT)) {
+    Wrap<I> dn = (MN - Wrap<I>(tab.mn[jT])) * s.mn_i;
+    if ((!chained || tab.chain_ok(jT, dn >= 0, wabs(dn))) && (!edge_band || dn >= 0))
+      return s.opacity * o.op;
+  }
+  if (!need_N) return (F)0;
+  Wrap<I> dn = (MN - Wrap<I>(tab.mn[jN])) * s.mn_i;
+  if (!(dn <= 0) || !tab.alive(jN)) return (F)0;
+  if (chained && !tab.chain_ok(jN, false, -dn)) return (F)0;
+  return s.opacity * o.op;
+}
+
 // --------------------------------------------------------------------------
-// Fills (render_dense.py:391-440)
+// Fills (render_dense.py:396-450)
 // --------------------------------------------------------------------------
 
 template <typename I>
@@ -456,7 +686,7 @@ __host__ __device__ Crossing<I> fill_crossing(Wrap<I> x1, Wrap<I> y1, Wrap<I> x2
   return c;
 }
 
-// The stable argsort rank (render_dense.py:421-426) of active edge i of a
+// The stable argsort rank (render_dense.py:432-436) of active edge i of a
 // row's active list (lane order), by counting: the active edges before it
 // by (a, lane), plus the inactive lanes, whose sort key is `big`, that
 // come before it (all of them when a_i > big, those of a lower lane when
@@ -472,7 +702,7 @@ __host__ __device__ int stable_rank(const I* la, const int* lane, int n, int i, 
   return rank;
 }
 
-// _fill_pixels (render_dense.py:432) at column x over the active list.
+// _fill_pixels (render_dense.py:442) at column x over the active list.
 template <typename I>
 __host__ __device__ bool fill_filled(const I* la, const I* lb, const int* odd, int n, Wrap<I> x) {
   int N = 0;
@@ -488,20 +718,20 @@ __host__ __device__ bool fill_filled(const I* la, const I* lb, const int* odd, i
 }
 
 // --------------------------------------------------------------------------
-// Blends (render_dense.py:185-197, 443)
+// Blends (render_dense.py:190-202, 453)
 // --------------------------------------------------------------------------
 
 template <typename F>
 __host__ __device__ __forceinline__ void color_blend(F* C, const F* color, F m) {
   F one_m = (F)1 - m;
-  for (int ch = 0; ch < 3; ++ch) C[ch] = xfma(color[ch], m, one_m * C[ch]);  // FMA site (:189)
-  C[3] = xfma(one_m, C[3], m);                                              // FMA site (:190)
+  for (int ch = 0; ch < 3; ++ch) C[ch] = xfma(color[ch], m, one_m * C[ch]);  // FMA site (:194)
+  C[3] = xfma(one_m, C[3], m);                                              // FMA site (:195)
 }
 
 template <typename F>
 __host__ __device__ __forceinline__ void pattern_blend(F* C, const F* pat, F m) {
-  F one_a = xfma(-m, pat[3], (F)1);                                        // FMA site (:196)
-  for (int ch = 0; ch < 4; ++ch) C[ch] = xfma(m, pat[ch], one_a * C[ch]);  // FMA site (:197)
+  F one_a = xfma(-m, pat[3], (F)1);                                        // FMA site (:201)
+  for (int ch = 0; ch < 4; ++ch) C[ch] = xfma(m, pat[ch], one_a * C[ch]);  // FMA site (:202)
 }
 
 template <typename F>
@@ -532,7 +762,6 @@ struct Params {
   const void* patterns;     // (NPat, ts, ts, 4) F
   const void* canvas;       // (3,) F
   const int64_t* strokes;   // (NS, STROKE_COLS)
-  const int64_t* stroke_px; // (NS + 1,) window-pixel prefix sums
   const int64_t* fills;     // (NF, FILL_COLS)
   const int64_t* fill_rows; // (NF + 1,) window-row prefix sums
   const int64_t* groups;    // (NG, GROUP_COLS), per tile in paint order
@@ -540,6 +769,8 @@ struct Params {
   void* pending;            // (pending_size,) F
   uint8_t* out;             // (T, ts, ts, 3)
   void* scratch;            // fill active lists past SMEM_EDGES, or null
+  const int64_t* units;     // (NU,) stroke units: item << 32 | row << 16 | column
+  int64_t* tables;          // (NU, TABLE_COLS) band tables written for the tests, or null
   int64_t d[N_DIMS];
 };
 
@@ -563,31 +794,134 @@ __device__ __forceinline__ void pending_max(double* p, double v) {
   if (bits > 0) atomicMax(reinterpret_cast<long long*>(p), bits);
 }
 
+// A stroke work unit (Params.units[u]): its item, its pixels (rows ya ..
+// ya + nh - 1, columns xa .. xa + nw - 1), its segment's constants, and
+// whether every coordinate of the segment is under WINDOW_COORD_BOUND.
 template <typename I, typename F>
-__global__ void __launch_bounds__(STROKE_THREADS)
+struct Unit {
+  const int64_t* it;
+  int nh, nw;
+  int64_t ya, xa;
+  bool in_bound;
+  Seg<I, F> s;
+};
+
+template <typename I, typename F>
+__host__ __device__ Unit<I, F> load_unit(const Params& p, int64_t u) {
+  const int64_t code = p.units[u];
+  Unit<I, F> un;
+  un.it = p.strokes + (code >> 32) * STROKE_COLS;
+  const int64_t* it = un.it;
+  const int uy = (int)((code >> 16) & 0xFFFF), ux = (int)(code & 0xFFFF);
+  un.nh = (int)min64(UNIT_SIDE, it[S_H] - uy);
+  un.nw = (int)min64(UNIT_SIDE, it[S_W] - ux);
+  un.ya = it[S_Y0] + uy;
+  un.xa = it[S_X0] + ux;
+  const int64_t G = p.d[D_G], NP = p.d[D_NP], DS = p.d[D_DS];
+  const int64_t tg = it[S_T] * G + it[S_SLOT], tc = it[S_T] * p.d[D_C] + it[S_C];
+  const int32_t* g = p.geom + 4 * tg;
+  const int64_t pidx = min64(max64(p.gprof[tg], 0), NP - 1);
+  const int64_t bound = sizeof(I) == 8 ? EXACT_COORD_BOUND : FAST_COORD_BOUND;
+  un.in_bound = true;
+  for (int i = 0; i < 4; ++i)
+    un.in_bound = un.in_bound && (g[i] < 0 ? -(int64_t)g[i] : g[i]) < bound;
+  un.s = make_seg<I, F>((I)g[0], (I)g[1], (I)g[2], (I)g[3], static_cast<const F*>(p.hw)[tc],
+                        static_cast<const F*>(p.opacity)[tc],
+                        static_cast<const F*>(p.profiles) + pidx * DS * 8, (int)DS,
+                        static_cast<const F*>(p.prof_total)[pidx],
+                        static_cast<const F*>(p.trav)[tg]);
+  return un;
+}
+
+template <typename I, typename F>
+__global__ void __launch_bounds__(STROKE_THREADS, stroke_min_blocks<F>())
 dense_stroke_alpha(const Params p, bool chain) {
-  const int64_t G = p.d[D_G], NP = p.d[D_NP], n_px = p.d[D_NPX];
-  const F* trav = static_cast<const F*>(p.trav);
-  const F* hw = static_cast<const F*>(p.hw);
-  const F* opacity = static_cast<const F*>(p.opacity);
-  const F* profiles = static_cast<const F*>(p.profiles);
-  const F* prof_total = static_cast<const F*>(p.prof_total);
+  __shared__ uint16_t s_px[STROKE_WARPS][UNIT_SIDE * UNIT_SIDE];  // kept pixels: row * 32 + col
+  __shared__ I s_mn[STROKE_WARPS][NB_CAP];
+  __shared__ uint16_t s_rule[STROKE_WARPS][NB_CAP];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const unsigned below = (1u << lane) - 1u;
   F* pending = static_cast<F*>(p.pending);
-  const int DS = (int)p.d[D_DS];
-  for (int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; idx < n_px;
-       idx += (int64_t)gridDim.x * blockDim.x) {
-    int64_t item = find_item(p.stroke_px, p.d[D_NS], idx);
-    const int64_t* it = p.strokes + item * STROKE_COLS;
-    int64_t local = idx - p.stroke_px[item], w = it[S_W];
-    int64_t ly = local / w;
-    int64_t y = it[S_Y0] + ly, x = it[S_X0] + (local - ly * w);
-    int64_t tg = it[S_T] * G + it[S_SLOT], tc = it[S_T] * p.d[D_C] + it[S_C];
-    const int32_t* g = p.geom + 4 * tg;
-    int64_t pidx = min64(max64(p.gprof[tg], 0), NP - 1);
-    Seg<I, F> s = make_seg<I, F>((I)g[0], (I)g[1], (I)g[2], (I)g[3], hw[tc], opacity[tc],
-                                 profiles + pidx * DS * 8, DS, prof_total[pidx], trav[tg]);
-    F alpha = stroke_alpha(s, Wrap<I>((I)x), Wrap<I>((I)y), chain);
-    pending_max(pending + it[S_OFF] + y * it[S_PW] + x, alpha);
+  for (int64_t u = (int64_t)blockIdx.x * STROKE_WARPS + warp; u < p.d[D_NU];
+       u += (int64_t)gridDim.x * STROKE_WARPS) {
+    const Unit<I, F> un = load_unit<I, F>(p, u);
+    const Seg<I, F>& s = un.s;
+    const int nh = un.nh, nw = un.nw;
+    const int64_t ya = un.ya, xa = un.xa;
+    int64_t* rec = p.tables == nullptr ? nullptr : p.tables + u * TABLE_COLS;
+
+    // Pass 1: keep the pixels that can be in line; A's range over them.
+    const F lim = xfmax(xsqrt(s.hw * s.hw) + (F)0.5, (F)1);
+    int n_in = 0;
+    Wrap<I> a_lo = Wrap<I>::max(), a_hi = Wrap<I>::min();
+    for (int k0 = 0; k0 < nh * nw; k0 += 32) {
+      const int k = k0 + lane;
+      bool in = false;
+      int ly = 0, lx = 0;
+      if (k < nh * nw) {
+        ly = k / nw;
+        lx = k - ly * nw;
+        const Wrap<I> x = (I)(xa + lx), y = (I)(ya + ly);
+        in = center_distance(s, x, y) < lim;
+        if (in) {
+          const Wrap<I> A = band_coord(s, s.swap ? y : x, s.swap ? x : y);
+          a_lo = wmin(a_lo, A);
+          a_hi = wmax(a_hi, A);
+        }
+      }
+      const unsigned m = __ballot_sync(FULL_MASK, in);
+      if (in) s_px[warp][n_in + __popc(m & below)] = (uint16_t)(ly * UNIT_SIDE + lx);
+      n_in += __popc(m);
+    }
+    if (n_in == 0) {
+      if (rec != nullptr && lane == 0) rec[0] = UNIT_EMPTY;
+      __syncwarp();
+      continue;
+    }
+    for (int o = 16; o > 0; o >>= 1) {
+      a_lo = wmin(a_lo, Wrap<I>(__shfl_xor_sync(FULL_MASK, a_lo.v, o)));
+      a_hi = wmax(a_hi, Wrap<I>(__shfl_xor_sync(FULL_MASK, a_hi.v, o)));
+    }
+
+    // The band table, or the per-pixel rules (see the header).
+    const Wrap<I> b_lo = wmax(s.div_mx(a_lo), 0);
+    const Wrap<I> b_hi = wmin(s.div_mx(a_hi) + 1, s.hK);
+    const int64_t nb64 = b_hi < b_lo ? 0 : (int64_t)b_hi.v - (int64_t)b_lo.v + 1;
+    const bool table = un.in_bound && nb64 <= NB_CAP;
+    const bool chained = chain && s.any_orig;
+    const int nb = table ? (int)nb64 : 0;
+    for (int j = lane; j < nb; j += 32) {
+      Wrap<I> mn;
+      s_rule[warp][j] = (uint16_t)band_rule(s, b_lo + Wrap<I>((I)j), chained, &mn);
+      s_mn[warp][j] = mn.v;
+    }
+    __syncwarp();
+    if (rec != nullptr) {
+      if (lane == 0) {
+        rec[0] = table ? UNIT_TABLE : UNIT_PER_PIXEL;
+        rec[1] = b_lo.v;
+        rec[2] = nb;
+      }
+      for (int j = lane; j < nb; j += 32) {
+        rec[4 + j] = s_mn[warp][j];
+        rec[4 + NB_CAP + j] = s_rule[warp][j];
+      }
+    }
+
+    // Pass 3: the kept pixels, every lane busy.
+    const BandTable<I> tab = {s_mn[warp], s_rule[warp], b_lo, nb};
+    int missed = 0;
+    for (int i = lane; i < n_in; i += 32) {
+      const int q = s_px[warp][i];
+      const int64_t y = ya + q / UNIT_SIDE, x = xa + q % UNIT_SIDE;
+      const F alpha = table ? stroke_alpha_table(s, Wrap<I>((I)x), Wrap<I>((I)y), chain, tab,
+                                                 &missed)
+                            : stroke_alpha(s, Wrap<I>((I)x), Wrap<I>((I)y), chain);
+      pending_max(pending + un.it[S_OFF] + y * un.it[S_PW] + x, alpha);
+    }
+    if (rec != nullptr && missed)
+      atomicAdd(reinterpret_cast<unsigned long long*>(rec + 3), (unsigned long long)missed);
+    __syncwarp();
   }
 }
 
@@ -652,51 +986,104 @@ dense_fill_alpha(const Params p) {
   }
 }
 
+// A group the blend warp meets: its window (tile pixels), pending base,
+// colour and pattern (-1: none, else the clamped index).
 template <typename F>
-__global__ void __launch_bounds__(BLEND_THREADS)
+struct BlendGroup {
+  int32_t y0, x0, h, w, pat;
+  int64_t base;
+  F color[3];
+};
+
+template <typename F>
+__global__ void __launch_bounds__(BLEND_THREADS, blend_min_blocks<F>())
 dense_blend_finalize(const Params p) {
-  const int64_t t = blockIdx.y, ts = p.d[D_TS], C = p.d[D_C], npat = p.d[D_NPAT];
-  const int64_t p0 = (int64_t)blockIdx.x * BAND_PX, npx = ts * ts;
-  const int64_t row_lo = p0 / ts, row_hi = (min64(p0 + BAND_PX, npx) - 1) / ts;
+  __shared__ int64_t s_desc[BLEND_WARPS][32 * GROUP_COLS];
+  __shared__ BlendGroup<F> s_hit[BLEND_WARPS][32];
+  __shared__ uint4 s_rgb[BLEND_WARPS][BLEND_ROWS * RECT * 3 / 16];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const unsigned below = (1u << lane) - 1u;
+  const int ts = (int)p.d[D_TS], rects_x = (ts + RECT - 1) / RECT;
+  const int64_t t = blockIdx.y, C = p.d[D_C], npat = p.d[D_NPAT];
+  const int ylo = (int)(blockIdx.x / rects_x) * RECT + warp * BLEND_ROWS;
+  const int xlo = (int)(blockIdx.x % rects_x) * RECT;
+  if (ylo >= ts) return;  // the whole warp: past the tile's last row
+  const int yhi = (int)min64(ylo + BLEND_ROWS, ts) - 1, xhi = (int)min64(xlo + RECT, ts) - 1;
+  const int x = xlo + lane;
   const F* canvas = static_cast<const F*>(p.canvas);
   const F* color = static_cast<const F*>(p.color);
   const F* patterns = static_cast<const F*>(p.patterns);
   const F* pending = static_cast<const F*>(p.pending);
-  F acc[PX][4];
-  int64_t py[PX], px[PX];
-  for (int k = 0; k < PX; ++k) {
-    int64_t q = p0 + k * BLEND_THREADS + threadIdx.x;
-    py[k] = q < npx ? q / ts : -1;  // -1: past the tile (never in a window)
-    px[k] = q < npx ? q - py[k] * ts : -1;
-    for (int ch = 0; ch < 3; ++ch) acc[k][ch] = canvas[ch];
-    acc[k][3] = (F)1;
+  F acc[BLEND_ROWS][4];
+#pragma unroll
+  for (int r = 0; r < BLEND_ROWS; ++r) {
+    for (int ch = 0; ch < 3; ++ch) acc[r][ch] = canvas[ch];
+    acc[r][3] = (F)1;
   }
-  for (int64_t gi = p.tile_ptr[t]; gi < p.tile_ptr[t + 1]; ++gi) {
-    const int64_t* g = p.groups + gi * GROUP_COLS;
-    const int64_t y0 = g[G_Y0], h = g[G_H];
-    if (y0 > row_hi || y0 + h - 1 < row_lo) continue;  // the window misses the band
-    const int64_t x0 = g[G_X0], w = g[G_W], base = g[G_BASE], tc = t * C + g[G_C];
-    const int32_t pat = p.pat[tc];
-    F col[3];
-    for (int ch = 0; ch < 3; ++ch) col[ch] = color[3 * tc + ch];
-    for (int k = 0; k < PX; ++k) {
-      int64_t ly = py[k] - y0, lx = px[k] - x0;
-      if (py[k] < 0 || ly < 0 || ly >= h || lx < 0 || lx >= w) continue;
-      F m = pending[base + ly * w + lx];
-      if (pat >= 0) {
-        // fill.rs:36-40: a premultiplied icon sample a pixel, the fill
-        // opacity ignored.
-        const F* tp = patterns + ((min64(pat, npat - 1) * ts + py[k]) * ts + px[k]) * 4;
-        F pv[4] = {tp[0], tp[1], tp[2], tp[3]};
-        pattern_blend(acc[k], pv, m);
-      } else {
-        color_blend(acc[k], col, m);
+  const int64_t g_end = p.tile_ptr[t + 1];
+  for (int64_t g0 = p.tile_ptr[t]; g0 < g_end; g0 += 32) {
+    // 32 descriptors in paint order, copied with coalesced loads.
+    const int n = (int)min64(32, g_end - g0);
+    const int64_t* src = p.groups + g0 * GROUP_COLS;
+    for (int i = lane; i < n * GROUP_COLS; i += 32) s_desc[warp][i] = src[i];
+    __syncwarp();
+    const int64_t* gd = s_desc[warp] + lane * GROUP_COLS;
+    const bool hit = lane < n && gd[G_Y0] <= yhi && gd[G_Y0] + gd[G_H] - 1 >= ylo
+                     && gd[G_X0] <= xhi && gd[G_X0] + gd[G_W] - 1 >= xlo;
+    const unsigned m = __ballot_sync(FULL_MASK, hit);
+    if (hit) {
+      BlendGroup<F>& e = s_hit[warp][__popc(m & below)];
+      const int64_t tc = t * C + gd[G_C];
+      const int32_t pat = p.pat[tc];
+      e.y0 = (int32_t)gd[G_Y0];
+      e.x0 = (int32_t)gd[G_X0];
+      e.h = (int32_t)gd[G_H];
+      e.w = (int32_t)gd[G_W];
+      e.pat = pat < 0 ? -1 : (int32_t)min64(pat, npat - 1);
+      e.base = gd[G_BASE];
+      for (int ch = 0; ch < 3; ++ch) e.color[ch] = color[3 * tc + ch];
+    }
+    __syncwarp();
+    const int hits = __popc(m);
+    for (int k = 0; k < hits; ++k) {
+      const BlendGroup<F>& e = s_hit[warp][k];
+      const int lx = x - e.x0;
+      if (x > xhi || lx < 0 || lx >= e.w) continue;
+#pragma unroll
+      for (int r = 0; r < BLEND_ROWS; ++r) {
+        const int y = ylo + r, ly = y - e.y0;
+        if (y > yhi || ly < 0 || ly >= e.h) continue;
+        const F mv = pending[e.base + (ly * e.w + lx)];
+        if (e.pat >= 0) {
+          // fill.rs:36-40: a premultiplied icon sample a pixel, the fill
+          // opacity ignored.
+          const F* tp = patterns + ((int64_t)e.pat * ts * ts + (y * ts + x)) * 4;
+          F pv[4] = {tp[0], tp[1], tp[2], tp[3]};
+          pattern_blend(acc[r], pv, mv);
+        } else {
+          color_blend(acc[r], e.color, mv);
+        }
       }
     }
+    __syncwarp();
   }
-  for (int k = 0; k < PX; ++k) {
-    if (py[k] < 0) continue;
-    finalize_rgb(acc[k], p.out + ((t * ts + py[k]) * ts + px[k]) * 3);
+  // The warp's rows as u8 RGB in shared memory, then out.
+  uint8_t* rgb = reinterpret_cast<uint8_t*>(s_rgb[warp]);
+#pragma unroll
+  for (int r = 0; r < BLEND_ROWS; ++r) finalize_rgb(acc[r], rgb + (r * RECT + lane) * 3);
+  __syncwarp();
+  uint8_t* out = p.out + ((t * ts + ylo) * ts + xlo) * 3;
+  if (ts % RECT == 0 && (reinterpret_cast<uintptr_t>(p.out) & 15) == 0) {
+    constexpr int per_row = RECT * 3 / 16;  // 16-byte words a row
+    for (int i = lane; i < BLEND_ROWS * per_row; i += 32) {
+      const int r = i / per_row;
+      reinterpret_cast<uint4*>(out + (int64_t)r * ts * 3)[i - r * per_row] = s_rgb[warp][i];
+    }
+  } else {
+    for (int i = lane; i < BLEND_ROWS * RECT * 3; i += 32) {
+      const int r = i / (RECT * 3), c = i - r * RECT * 3;
+      if (ylo + r <= yhi && xlo + c / 3 <= xhi) out[(int64_t)r * ts * 3 + c] = rgb[i];
+    }
   }
 }
 
@@ -714,7 +1101,6 @@ Params make_params(const void* const* ptrs, const int64_t* dims) {
   p.patterns = ptrs[P_PATTERNS];
   p.canvas = ptrs[P_CANVAS];
   p.strokes = static_cast<const int64_t*>(ptrs[P_STROKES]);
-  p.stroke_px = static_cast<const int64_t*>(ptrs[P_STROKE_PX]);
   p.fills = static_cast<const int64_t*>(ptrs[P_FILLS]);
   p.fill_rows = static_cast<const int64_t*>(ptrs[P_FILL_ROWS]);
   p.groups = static_cast<const int64_t*>(ptrs[P_GROUPS]);
@@ -722,8 +1108,24 @@ Params make_params(const void* const* ptrs, const int64_t* dims) {
   p.pending = const_cast<void*>(ptrs[P_PENDING]);
   p.out = static_cast<uint8_t*>(const_cast<void*>(ptrs[P_OUT]));
   p.scratch = const_cast<void*>(ptrs[P_SCRATCH]);
+  p.units = static_cast<const int64_t*>(ptrs[P_UNITS]);
+  p.tables = static_cast<int64_t*>(const_cast<void*>(ptrs[P_TABLES]));
   for (int i = 0; i < N_DIMS; ++i) p.d[i] = dims[i];
   return p;
+}
+
+template <typename K>
+int kernel_attrs(K kernel, int threads, int64_t* out) {
+  cudaFuncAttributes a;
+  int rc = (int)cudaFuncGetAttributes(&a, kernel);
+  if (rc != 0) return rc;
+  int blocks = 0;
+  rc = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, threads, 0);
+  out[0] = a.numRegs;
+  out[1] = (int64_t)a.localSizeBytes;
+  out[2] = (int64_t)a.sharedSizeBytes;
+  out[3] = blocks;
+  return rc;
 }
 
 }  // namespace
@@ -737,8 +1139,8 @@ extern "C" {
 int osmr_dense_stroke_alpha(const void* const* ptrs, const int64_t* dims, int exact, int chain,
                             void* stream) {
   Params p = make_params(ptrs, dims);
-  int64_t blocks = (p.d[D_NPX] + STROKE_THREADS - 1) / STROKE_THREADS;
-  blocks = blocks < 132 * 64 ? blocks : 132 * 64;
+  int64_t blocks = (p.d[D_NU] + STROKE_WARPS - 1) / STROKE_WARPS;
+  blocks = blocks < (1 << 30) ? blocks : (1 << 30);  // the warps stride over the rest
   if (blocks < 1) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (exact)
@@ -765,8 +1167,8 @@ int osmr_dense_fill_alpha(const void* const* ptrs, const int64_t* dims, int exac
 int osmr_dense_blend_finalize(const void* const* ptrs, const int64_t* dims, int exact,
                               void* stream) {
   Params p = make_params(ptrs, dims);
-  const int64_t ts = p.d[D_TS];
-  dim3 grid((unsigned)((ts * ts + BAND_PX - 1) / BAND_PX), (unsigned)p.d[D_T]);
+  const int64_t rects = (p.d[D_TS] + RECT - 1) / RECT;
+  dim3 grid((unsigned)(rects * rects), (unsigned)p.d[D_T]);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (exact)
     dense_blend_finalize<double><<<grid, BLEND_THREADS, 0, s>>>(p);
@@ -775,13 +1177,33 @@ int osmr_dense_blend_finalize(const void* const* ptrs, const int64_t* dims, int 
   return (int)cudaGetLastError();
 }
 
+// Each kernel's registers a thread, local (spill) bytes, static shared
+// bytes and resident CTAs an SM, four int64 a kernel in KERNELS' order
+// (stroke, fill, blend), for one precision.
+int osmr_dense_kernel_attrs(int exact, int64_t* out) {
+  int rc = 0;
+  if (exact) {
+    rc = rc ? rc : kernel_attrs(dense_stroke_alpha<int64_t, double>, STROKE_THREADS, out);
+    rc = rc ? rc : kernel_attrs(dense_fill_alpha<int64_t, double>, 32 * FILL_WARPS, out + 4);
+    rc = rc ? rc : kernel_attrs(dense_blend_finalize<double>, BLEND_THREADS, out + 8);
+  } else {
+    rc = rc ? rc : kernel_attrs(dense_stroke_alpha<int32_t, float>, STROKE_THREADS, out);
+    rc = rc ? rc : kernel_attrs(dense_fill_alpha<int32_t, float>, 32 * FILL_WARPS, out + 4);
+    rc = rc ? rc : kernel_attrs(dense_blend_finalize<float>, BLEND_THREADS, out + 8);
+  }
+  return rc;
+}
+
 // Constants the host packing shares with this file.
 int osmr_dense_constants(int64_t* out) {
   out[0] = N_PTRS;
   out[1] = N_DIMS;
   out[2] = SMEM_EDGES;
   out[3] = FILL_WARPS;
-  out[4] = BAND_PX;
+  out[4] = UNIT_SIDE;
+  out[5] = TABLE_COLS;
+  out[6] = EXACT_COORD_BOUND;
+  out[7] = FAST_COORD_BOUND;
   return 0;
 }
 

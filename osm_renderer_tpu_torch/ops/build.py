@@ -121,6 +121,7 @@ def rle_library(ptxas_verbose: bool = False) -> ctypes.CDLL:
 
 def dense_library(ptxas_verbose: bool = False) -> ctypes.CDLL:
     from osm_renderer_tpu_torch.ops import dense_cuda as DC
+    from osm_renderer_tpu_torch.ops import render_dense as RD
 
     lib = load_library("dense.cu", ptxas_verbose)
     P, I = ctypes.c_void_p, ctypes.c_int
@@ -128,13 +129,16 @@ def dense_library(ptxas_verbose: bool = False) -> ctypes.CDLL:
     lib.osmr_dense_stroke_alpha.argtypes = [P, P, I, I, P]
     lib.osmr_dense_fill_alpha.argtypes = [P, P, I, P]
     lib.osmr_dense_blend_finalize.argtypes = [P, P, I, P]
+    lib.osmr_dense_kernel_attrs.argtypes = [I, P]
     for fn in (lib.osmr_dense_stroke_alpha, lib.osmr_dense_fill_alpha,
-               lib.osmr_dense_blend_finalize, lib.osmr_dense_constants):
+               lib.osmr_dense_blend_finalize, lib.osmr_dense_kernel_attrs,
+               lib.osmr_dense_constants):
         fn.restype = ctypes.c_int
     lib.osmr_dense_constants.argtypes = [P]
-    got = (ctypes.c_int64 * 5)()
+    got = (ctypes.c_int64 * 8)()
     lib.osmr_dense_constants(got)
-    want = (DC.N_PTRS, DC.N_DIMS, DC.SMEM_EDGES, DC.FILL_WARPS, DC.BAND_PX)
+    want = (DC.N_PTRS, DC.N_DIMS, DC.SMEM_EDGES, DC.FILL_WARPS, DC.UNIT_SIDE, DC.TABLE_COLS,
+            RD.WINDOW_COORD_BOUND["exact"], RD.WINDOW_COORD_BOUND["fast"])
     if tuple(got) != want:
         raise RuntimeError(f"csrc/dense.cu's constants {tuple(got)} differ from "
                            f"ops/dense_cuda.py's {want}")

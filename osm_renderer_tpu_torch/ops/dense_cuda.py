@@ -12,8 +12,10 @@ that `render_dense.plan_batch` builds on the host:
 * `pack_plan(plan, n_tiles)` -> `DensePack`: the kernels' arguments as
   one int64 buffer, made on the host before the upload: the stroke
   items with the prefix sums of their window areas, the fill items with
-  their edge bucket and the prefix sums of their window rows, and the
-  groups in paint order per tile.
+  their edge bucket and the prefix sums of their window rows, the
+  groups in paint order per tile, and the stroke kernel's work units
+  (each window cut into rectangles of at most UNIT_SIDE x UNIT_SIDE
+  pixels, one a warp).
 * `stroke_alpha`, `fill_alpha`: phase 1, max-reduced into the flat
   pending buffer (`new_pending`); `blend_finalize`: phase 2 and the u8
   finalize -> (T, ts, ts, 3) uint8; `render_batch`: the three.  For
@@ -50,10 +52,16 @@ STROKE_COLS = 9  # t c slot y0 x0 h w pend_off pend_w (BatchPlan.strokes)
 FILL_COLS = 11   # t c first count y0 x0 h w pend_off pend_w E
 GROUP_COLS = 7   # t c y0 x0 h w base (BatchPlan.groups)
 # Constants shared with csrc/dense.cu (checked when the library loads).
-N_PTRS, N_DIMS = 20, 14
+N_PTRS, N_DIMS = 21, 14
 SMEM_EDGES = 512  # a fill warp's active list in shared memory up to this bucket
 FILL_WARPS = 4
-BAND_PX = 2048
+UNIT_SIDE = 32    # a stroke work unit: at most UNIT_SIDE x UNIT_SIDE window pixels
+# A unit's band table as the stroke kernel writes it when asked (the
+# tests): mode (UNIT_EMPTY, UNIT_TABLE, UNIT_PER_PIXEL), first band,
+# bands, lookups it lacked, then 2 * UNIT_SIDE minor coordinates and as
+# many rule words.
+TABLE_COLS = 4 + 4 * UNIT_SIDE
+UNIT_EMPTY, UNIT_TABLE, UNIT_PER_PIXEL = 0, 1, 2
 # Fill CTAs: enough to fill the card; fewer when the active lists live in
 # global scratch (a slice of e_max entries a warp).
 FILL_BLOCKS = 132 * 16
@@ -65,7 +73,9 @@ class DensePack(NamedTuple):
     strokes (n_strokes, STROKE_COLS), their window-pixel prefix sums
     (n_strokes + 1), fills (n_fills, FILL_COLS), their window-row prefix
     sums (n_fills + 1), groups (n_groups, GROUP_COLS) sorted by (tile,
-    chunk), and each tile's group range (n_tiles + 1)."""
+    chunk), each tile's group range (n_tiles + 1), and the stroke work
+    units (n_units,): item << 32 | row << 16 | column of the unit's
+    first pixel in its item's window."""
     buf: torch.Tensor
     ts: int
     precision: str
@@ -77,6 +87,7 @@ class DensePack(NamedTuple):
     e_max: int
     n_groups: int
     pending_size: int
+    n_units: int
 
     def to(self, device) -> "DensePack":
         return self._replace(buf=self.buf.to(device))
@@ -93,6 +104,10 @@ class DensePack(NamedTuple):
             at += n
         return tuple(out)
 
+    def units(self) -> torch.Tensor:
+        """The stroke work units, the buffer's last n_units values."""
+        return self.buf[self.buf.numel() - self.n_units:]
+
 
 def pack_plan(plan: RD.BatchPlan, n_tiles: int) -> DensePack:
     """The kernels' arguments from a host plan -> a DensePack on the CPU
@@ -106,14 +121,30 @@ def pack_plan(plan: RD.BatchPlan, n_tiles: int) -> DensePack:
     # Paint order within a tile: by the chunk each group blends at.
     groups = groups[np.lexsort((groups[:, 1], groups[:, 0]))]
     tile_ptr = np.searchsorted(groups[:, 0], np.arange(n_tiles + 1), "left")
+    units = stroke_units(strokes)
     buf = np.concatenate([
         strokes.ravel(), np.concatenate([[0], np.cumsum(spx)]),
         fills.ravel(), np.concatenate([[0], np.cumsum(fills[:, 6])]),
-        groups.ravel(), tile_ptr,
+        groups.ravel(), tile_ptr, units,
     ]).astype(np.int64)
     return DensePack(torch.from_numpy(buf), plan.ts, plan.precision, int(n_tiles),
                      strokes.shape[0], int(spx.sum()), fills.shape[0], int(fills[:, 6].sum()),
-                     int(fills[:, 10].max(initial=0)), groups.shape[0], int(plan.pending_size))
+                     int(fills[:, 10].max(initial=0)), groups.shape[0], int(plan.pending_size),
+                     units.size)
+
+
+def stroke_units(strokes: np.ndarray) -> np.ndarray:
+    """Each stroke item's window (columns 5, 6: h, w) cut into rectangles
+    of at most UNIT_SIDE x UNIT_SIDE pixels, row-major within the item,
+    items in order -> (n_units,) int64 item << 32 | row << 16 | column."""
+    h, w = strokes[:, 5], strokes[:, 6]
+    if h.size and max(h.max(), w.max()) > 1 << 16:
+        raise BatchLayoutError(f"a stroke window of {h.max()} x {w.max()} px; at most 65536")
+    nux = -(-w // UNIT_SIDE)
+    count = -(-h // UNIT_SIDE) * nux
+    item = np.repeat(np.arange(h.size, dtype=np.int64), count)
+    j = np.arange(item.size, dtype=np.int64) - np.repeat(np.cumsum(count) - count, count)
+    return (item << 32) | ((j // nux[item] * UNIT_SIDE) << 16) | (j % nux[item] * UNIT_SIDE)
 
 
 def new_pending(batch: RD.TileBatch, pack: DensePack) -> torch.Tensor:
@@ -170,25 +201,35 @@ def _check(batch: RD.TileBatch, pack: DensePack, pending: torch.Tensor,
         raise BatchLayoutError(f"canvas must be a (3,) {ff} tensor on {dev}")
 
 
-def _launch(name: str, batch, pack, pending, *, canvas=None, out=None, scratch=None,
-            fill_blocks: int = 0, chain: Optional[bool] = None) -> None:
+def kernel_arguments(batch, pack, pending, *, canvas=None, out=None, scratch=None,
+                     fill_blocks: int = 0, tables=None):
+    """csrc/dense.cu's (ptrs, dims) arrays for these tensors (ctypes).
+    `tables`: a zeroed (n_units, TABLE_COLS) int64 tensor the stroke
+    kernel fills with each unit's band table (the tests'; None in the
+    wrappers)."""
+    strokes, _, fills, fprefix, groups, tile_ptr = pack.views()
+    b = batch
+    ptrs = [b.geom, b.geom_traveled, b.geom_profile, b.chunk_color, b.chunk_opacity,
+            b.chunk_hw, b.chunk_pat, b.profiles, b.profile_total, b.patterns, canvas,
+            strokes, fills, fprefix, groups, tile_ptr, pending, out, scratch, pack.units(),
+            tables]
+    ptr_arr = (ctypes.c_void_p * N_PTRS)(*[t.data_ptr() if t is not None and t.numel() else None
+                                           for t in ptrs])
+    dims = [b.geom.shape[0], b.geom.shape[1], b.chunk_kind.shape[1], b.profiles.shape[0],
+            b.profiles.shape[1], b.patterns.shape[0], pack.ts, pack.n_strokes, pack.n_fills,
+            pack.fill_rows, pack.e_max, pack.n_groups, fill_blocks, pack.n_units]
+    return ptr_arr, (ctypes.c_int64 * N_DIMS)(*dims)
+
+
+def _launch(name: str, batch, pack, pending, *, chain: Optional[bool] = None, **tensors) -> None:
     """One call into csrc/dense.cu on the current stream of the batch's
-    device; raises on a failed build or launch."""
+    device; raises on a failed build or launch.  `tensors`: the keyword
+    arguments of `kernel_arguments`."""
     from osm_renderer_tpu_torch.ops.build import dense_library
 
     lib = dense_library()
     dev = batch.geom.device
-    strokes, sprefix, fills, fprefix, groups, tile_ptr = pack.views()
-    b = batch
-    ptrs = [b.geom, b.geom_traveled, b.geom_profile, b.chunk_color, b.chunk_opacity,
-            b.chunk_hw, b.chunk_pat, b.profiles, b.profile_total, b.patterns, canvas,
-            strokes, sprefix, fills, fprefix, groups, tile_ptr, pending, out, scratch]
-    ptr_arr = (ctypes.c_void_p * N_PTRS)(*[t.data_ptr() if t is not None and t.numel() else None
-                                           for t in ptrs])
-    dims = [b.geom.shape[0], b.geom.shape[1], b.chunk_kind.shape[1], b.profiles.shape[0],
-            b.profiles.shape[1], b.patterns.shape[0], pack.ts, pack.n_strokes, pack.stroke_px,
-            pack.n_fills, pack.fill_rows, pack.e_max, pack.n_groups, fill_blocks]
-    dim_arr = (ctypes.c_int64 * N_DIMS)(*dims)
+    ptr_arr, dim_arr = kernel_arguments(batch, pack, pending, **tensors)
     exact = int(pack.precision == "exact")
     stream = torch.cuda.current_stream(dev).cuda_stream
     fn = getattr(lib, f"osmr_{name}")
@@ -201,6 +242,20 @@ def _launch(name: str, batch, pack, pending, *, canvas=None, out=None, scratch=N
         raise RuntimeError(f"{name} kernel launch failed with cudaError_t {rc}")
     with _launch_lock:
         DENSE_KERNEL_LAUNCHES[name] += 1
+
+
+def kernel_attributes(precision: str) -> dict:
+    """{kernel: {regs, local_bytes, shared_bytes, blocks_per_sm}} of the
+    built kernels in `precision` (cudaFuncGetAttributes and the
+    occupancy calculator; local bytes are spills).  Needs a card."""
+    from osm_renderer_tpu_torch.ops.build import dense_library
+
+    out = (ctypes.c_int64 * (4 * len(KERNELS)))()
+    rc = dense_library().osmr_dense_kernel_attrs(int(precision == "exact"), out)
+    if rc != 0:
+        raise RuntimeError(f"cudaFuncGetAttributes failed with cudaError_t {rc}")
+    keys = ("regs", "local_bytes", "shared_bytes", "blocks_per_sm")
+    return {k: dict(zip(keys, out[4 * i:4 * i + 4])) for i, k in enumerate(KERNELS)}
 
 
 def _on_cuda(t: torch.Tensor, what: str) -> bool:

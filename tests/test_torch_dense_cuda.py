@@ -132,6 +132,44 @@ def test_pack_prefix_sums_cover_every_window_once():
         map(tuple, np.concatenate([it for _, it, _ in plan.fills]).tolist()))
 
 
+def test_pack_units_cover_every_window_pixel_once():
+    """The stroke kernel's work units: rectangles of at most UNIT_SIDE x
+    UNIT_SIDE pixels that tile each item's window exactly, items in
+    order; the pack's tail holds them."""
+    _, _, plan = _scene_plan(ts=512)
+    pack = DC.pack_plan(plan, 4)
+    units = pack.units().numpy()
+    assert units.size == pack.n_units > pack.n_strokes
+    assert np.array_equal(units, DC.stroke_units(plan.strokes))
+    item, uy, ux = units >> 32, (units >> 16) & 0xFFFF, units & 0xFFFF
+    assert (np.diff(item) >= 0).all() and (uy % DC.UNIT_SIDE == 0).all()
+    h, w = plan.strokes[item, 5], plan.strokes[item, 6]
+    nh, nw = np.minimum(DC.UNIT_SIDE, h - uy), np.minimum(DC.UNIT_SIDE, w - ux)
+    assert (nh > 0).all() and (nw > 0).all()
+    assert np.array_equal(np.bincount(item, weights=nh * nw, minlength=pack.n_strokes),
+                          plan.strokes[:, 5] * plan.strokes[:, 6])
+    assert len(set(zip(item.tolist(), uy.tolist(), ux.tolist()))) == units.size
+    assert pack.buf.numel() == sum(v.numel() for v in pack.views()) + pack.n_units
+
+
+def test_pass_one_keeps_every_stroke_pixel_with_an_alpha():
+    """The exact stroke kernel's pass 1 keeps the pixels with cd <
+    fmax(sqrt(hw * hw) + 0.5, 1) (`tools/dense_counts.kept_pixels` counts
+    them as it does, in f64): every pixel to which the plain version gives
+    a stroke alpha (the walk chain off, which only removes pixels) is
+    among them."""
+    from osm_renderer_tpu_torch.tools import dense_counts
+
+    arrays, _, plan = _scene_plan("exact")
+    batch = RD.TileBatch.from_numpy(arrays, "cpu")
+    with torch_threads(1):
+        pend = RD.alphas(batch, plan._replace(fills=[]), False).numpy()
+    kept = np.concatenate([idx for idx, _ in dense_counts.kept_pixels(arrays, plan)])
+    painted = np.flatnonzero(pend > 0)
+    assert painted.size and np.isin(painted, kept).all()
+    assert kept.size < int(plan.strokes[:, 5] @ plan.strokes[:, 6])
+
+
 @pytest.mark.parametrize("E", [4, 8, 64])
 @pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
 def test_counted_stable_rank_equals_argsort(E, dtype):

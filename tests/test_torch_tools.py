@@ -136,6 +136,17 @@ def test_kdevice_cli_dense_on_the_cpu(mini_bin, capsys):
     assert out.startswith("cpu: ") and "not a device time; 1 tiles" in out
 
 
+def test_dense_counts_cli_on_the_cpu(mini_bin, capsys):
+    """tools/dense_counts prints the dense kernels' work on a batch."""
+    from osm_renderer_tpu_torch.tools import dense_counts
+
+    assert dense_counts.main(["--zoom", "16", "--geodata", mini_bin]) == 0
+    out = capsys.readouterr().out
+    got = dict(kv.split("=") for kv in out.split(": ", 1)[1].split())
+    assert int(got["kept_px"]) <= int(got["window_px"]) and int(got["units"]) > 0
+    assert int(got["groups"]) > 0 and float(got["groups_per_strip"]) > 0
+
+
 # ---------------------------------------------------------------------------
 # The operator and profiling tools (scale_sweep, parity_check, warmup,
 # profile_serving, cold_profile, ktime, kdecomp) on the CPU.
