@@ -76,7 +76,9 @@ Phases (any failure exits non-zero; no phase is skipped):
    z15 x97, both precisions: each kernel's device ms (enqueue hidden)
    beside its bound (`dense_bounds`), its plain function's ms and the
    first design's ms (`EARLIER_DENSE_MS`), and its registers, spill
-   bytes, static shared memory and resident CTAs an SM; the batch's ms
+   bytes, static shared memory and resident CTAs an SM (the fill's in
+   both precisions on a line of their own), the fill kernel's units and
+   rows a unit beside its time; the batch's ms
    through the kernels and through the plain version, its device
    operations (torch.profiler; at most 5 through the kernels) and peak
    memory, each way.
@@ -997,9 +999,10 @@ def _dense_scene(device, scene: str, precision: str):
 
 
 # Device ms of the dense kernels' first design (a thread a stroke window
-# pixel, a thread eight blend pixels walking every group of its tile;
-# PERF.md section 5, NVIDIA H100 80GB HBM3 at 700 W), printed beside this
-# run's: (precision, batch) -> stroke, fill, blend.
+# pixel, a warp a fill window row found by binary search, a thread eight
+# blend pixels walking every group of its tile; PERF.md section 5,
+# NVIDIA H100 80GB HBM3 at 700 W), printed beside this run's: (precision,
+# batch) -> stroke, fill, blend.
 EARLIER_DENSE_MS = {
     ("exact", "minicity_z15_x30"): (0.5288, 0.0333, 0.4008),
     ("fast", "minicity_z15_x30"): (0.2544, 0.0220, 0.3514),
@@ -1223,7 +1226,8 @@ def phase_dense(device, styler, smi, out):
             where = (f"on the card and on the CPU (CPU ms={cpu_ms:.1f})" if on_cpu
                      else "on the card")
             log(f"  (a) {precision} {name}: T={got.shape[0]} ts={ts} chunk={chunk} "
-                f"chain={chain} e_max={pack.e_max} units={pack.n_units}: kernels byte-identical "
+                f"chain={chain} e_max={pack.e_max} units={pack.n_units} fill units="
+                f"{pack.n_fill_units}: kernels byte-identical "
                 f"to the plain version {where}, each kernel to its plain function; painted {painted:.3f}; "
                 f"{time.perf_counter() - t_batch:.1f} s")
             if name in ("minicity_z15_x30", "minicity_z15_2x_x12", "bigcity_z15_x97"):
@@ -1249,6 +1253,10 @@ def phase_dense(device, styler, smi, out):
         f"worst tile {100 * frac:.4f} % of values off")
 
     attrs = {p: DC.kernel_attributes(p) for p in ("exact", "fast")}
+    log("  (c) dense_fill_alpha: " + "; ".join(
+        f"{p} {a['regs']} registers, {a['local_bytes']} spill bytes, {a['shared_bytes']} static "
+        f"shared bytes, {a['blocks_per_sm']} CTAs an SM"
+        for p, a in ((p, attrs[p]["dense_fill_alpha"]) for p in ("exact", "fast"))))
     for (precision, name), args in timed.items():
         t_batch = time.perf_counter()
         batch, canvas, ts, chunk, chain, plan, pack, sp_want, fp_want, pend = args
@@ -1290,6 +1298,8 @@ def phase_dense(device, styler, smi, out):
         earlier = dict(zip(DC.KERNELS, EARLIER_DENSE_MS[(precision, name)]))
         row = dict(total_ms=total, total_dev_ms=total_dev, plain_ms=plain_total, launches=ops,
                    plain_launches=plain_ops, peak_bytes=peak, plain_peak_bytes=plain_peak,
+                   fill_units=pack.n_fill_units,
+                   rows_per_unit=pack.fill_rows / max(pack.n_fill_units, 1),
                    kernels={k: dict(ms=dev_ms[k], plain_ms=plain_ms[k], bound_ms=bounds[k][0],
                                     bound_by=bounds[k][1], earlier_ms=earlier[k])
                             for k in dev_ms})
@@ -1303,11 +1313,14 @@ def phase_dense(device, styler, smi, out):
             f"{time.perf_counter() - t_batch:.1f} s")
         for k in DC.KERNELS:
             r, a = row["kernels"][k], attrs[precision][k]
+            units = (f"; {row['fill_units']} units, {row['rows_per_unit']:.2f} rows a unit"
+                     if k == "dense_fill_alpha" else "")
             log(f"      {k}: {r['ms']:.4f} ms device (first design {r['earlier_ms']:.4f}), "
                 f"bound {r['bound_ms']:.6f} ms ({r['bound_by']}), "
                 f"{100 * r['bound_ms'] / r['ms']:.2f} % of it; plain function "
                 f"{r['plain_ms']:.2f} ms; {a['regs']} registers, {a['local_bytes']} spill "
-                f"bytes, {a['shared_bytes']} static shared bytes, {a['blocks_per_sm']} CTAs an SM")
+                f"bytes, {a['shared_bytes']} static shared bytes, {a['blocks_per_sm']} CTAs an SM"
+                f"{units}")
     out["worst"] = worst
 
 

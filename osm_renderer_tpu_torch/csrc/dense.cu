@@ -15,13 +15,11 @@
 //    corrections, start_alive (:324) and, with `chain`, the 11-step walk
 //    chain (:356).  plan.stroke_passes only bounds the plain version's
 //    temporaries; the kernel ignores it.
-// 2. dense_fill_alpha: one warp per fill window row (BatchPlan.fills, all
-//    edge buckets E in one launch).  The warp evaluates _fill_rows (:429)
-//    for the row's E lanes, one lane a thread, compacts the active edges
-//    in lane order with a ballot into its own list (shared memory, or a
-//    global scratch slice past SMEM_EDGES lanes), ranks them by counting
-//    and then runs _fill_pixels (:442) for the row's pixels over the
-//    active list only.
+// 2. dense_fill_alpha: one warp a fill unit, at most R rows of one fill
+//    item's window (BatchPlan.fills, all edge buckets E in one launch;
+//    cut by ops/dense_cuda.py::fill_units).  It evaluates _fill_rows
+//    (:429) for the unit's (row, edge) pairs and _fill_pixels (:442) for
+//    its pixels.
 // 3. dense_blend_finalize: one CTA per (tile, RECT x RECT pixels), one
 //    warp per BLEND_ROWS rows of it, each lane one column, the RGBA of
 //    its BLEND_ROWS pixels in registers (the f64 canvas never lives in
@@ -60,14 +58,16 @@
 //   under nvcc's default -prec-sqrt=true, and `/` is IEEE under
 //   -prec-div=true.
 // * Floor division.  torch.div(..., rounding_mode="floor") (:163) floors
-//   where C's `/` truncates: floor_div corrects for sign as torch's
-//   div_floor_integer does, and ceil_div2 (:176) negates around it.  The
-//   fast path keeps the reference's f32 estimate and its four integer
-//   corrections (:164-172).  Every division of the stroke rules is by
-//   the segment's two_mx; the exact path divides by it through
-//   FloorDiv64, a reciprocal made once a segment (a multiply-high and
-//   one correction step), which gives floor division's quotient for
-//   every int64 numerator, wrapped values included.
+//   where C's `/` truncates.  The fast path keeps the reference's f32
+//   estimate and its four integer corrections (:164-172), and ceil_div2
+//   (:176) negates around it.  The exact path divides through
+//   FloorDiv64, a reciprocal made once a divisor (a multiply-high and one
+//   correction step), which gives floor division's quotient for every
+//   int64 numerator, wrapped values included: once a segment for the
+//   stroke rules, whose every division is by the segment's two_mx, and
+//   once an edge for the fill, whose divisions of an active row are all
+//   by 2 * max(ady, 1) (on such a row ady >= 1, so max(2 * ady, 1), the
+//   steep branch's divisor, is the same number).
 // * Integer overflow.  Signed overflow is undefined in C++ and wraps in
 //   torch.  Under FAST_COORD_BOUND (draw/primitives.py, checked by
 //   parallel/renderer.py before a fast batch) and WINDOW_COORD_BOUND
@@ -123,7 +123,38 @@
 //   whose band the table lacks (the rule makes that impossible) falls
 //   back to stroke_alpha as well.
 // * dense_fill_alpha: bytes on paper (each fill's edges and its window's
-//   pending values), latency in practice: one warp a window row.
+//   pending values), latency in practice: the work is small (on bigcity
+//   z15 x97, 2.45 M window pixels against ~2 active edges a row, at most
+//   4), so what costs is each warp's chain of dependent steps.  So the
+//   host cuts each item's window rows into units (ops/dense_cuda.py::
+//   fill_units) of at most R rows (fill_unit_rows: the most, up to 32,
+//   whose R x E crossings fit FILL_PAIRS with every edge active on every
+//   row) and FILL_UNIT_PX pixels, widest bucket first, and each warp
+//   takes one unit and
+//   (a) reads its unit code, then the item's descriptor, a column a lane,
+//       shuffled out to the warp;
+//   (b) loads the item's edges once, a lane an edge (min(E, 32) lanes a
+//       row, 32 / that rows a step), with their row-independent constants
+//       (FillEdge: y range, adx, ady, sx, steep and, in exact precision,
+//       the FloorDiv64 reciprocal), and tests the unit's (row, edge)
+//       pairs in row-major, edge-minor steps; only active pairs divide;
+//   (c) compacts each row's active pairs with a ballot, edge order kept,
+//       into the row's own stretch of E entries of the warp's list (at
+//       r * E; a count a row), in shared memory, or past FILL_PAIRS (R =
+//       1) in a global scratch slice;
+//   (d) ranks each active pair within its row by counting (stable_rank,
+//       the inactive lanes' `big` key included), a lane a pair;
+//   (e) runs _fill_pixels for the unit's pixels row-major, two a lane a
+//       round, every lane busy, each over its row's short list (its first
+//       four entries read at once), with coalesced pending addresses.
+//   A unit is a chain of about four dependent loads (code, descriptor,
+//   edges, then the list in shared memory) and a few rounds, where a row
+//   of the first design took a binary search over the row prefix sums
+//   (about 13 loads) and re-read and re-divided every edge.  The pixel
+//   cap keeps the long units short (a whole-tile window, a wide fill);
+//   the smaller FILL_PAIRS shortens the wide buckets' units (R = 4 at E =
+//   64).  What is left is the warps' issue and latency: the crossings,
+//   the ranks and the pixel rounds of ~10,000 units (PERF.md section 6).
 // * dense_blend_finalize: bytes (the pending values in, the u8 tiles
 //   out), and the latency of a walk over the tile's group descriptors
 //   with one dependent load a group, were every thread to make it.
@@ -155,7 +186,8 @@ template <typename F> constexpr int blend_min_blocks() { return sizeof(F) == 8 ?
 constexpr int UNIT_SIDE = 32;                 // a stroke unit: at most UNIT_SIDE x UNIT_SIDE px
 constexpr int NB_CAP = 2 * UNIT_SIDE;         // bands a unit's table holds
 constexpr int FILL_WARPS = 4;                 // warps per fill CTA
-constexpr int SMEM_EDGES = 512;               // a warp's active-list capacity in shared memory
+constexpr int FILL_PAIRS = 256;               // a fill warp's list of crossings in shared memory
+constexpr int FILL_MAX_ROWS = 32;             // rows a fill unit holds at most
 constexpr int BLEND_WARPS = 8;
 constexpr int BLEND_THREADS = 32 * BLEND_WARPS;
 constexpr int RECT = 32;                      // a blend CTA's RECT x RECT pixels, a lane a column
@@ -175,12 +207,12 @@ constexpr int TABLE_COLS = 4 + 2 * NB_CAP;
 // fills it in this order).
 enum {
   P_GEOM, P_TRAV, P_GPROF, P_COLOR, P_OPACITY, P_HW, P_PAT, P_PROFILES, P_PROF_TOTAL,
-  P_PATTERNS, P_CANVAS, P_STROKES, P_FILLS, P_FILL_ROWS, P_GROUPS, P_TILE_PTR,
+  P_PATTERNS, P_CANVAS, P_STROKES, P_FILLS, P_FILL_UNITS, P_GROUPS, P_TILE_PTR,
   P_PENDING, P_OUT, P_SCRATCH, P_UNITS, P_TABLES, N_PTRS
 };
 // Size slots of the entry points' `dims` array.
 enum {
-  D_T, D_G, D_C, D_NP, D_DS, D_NPAT, D_TS, D_NS, D_NF, D_NROWS, D_EMAX, D_NG,
+  D_T, D_G, D_C, D_NP, D_DS, D_NPAT, D_TS, D_NS, D_NF, D_NFU, D_EMAX, D_NG,
   D_FILL_BLOCKS, D_NU, N_DIMS
 };
 // Columns of the packed items (ops/dense_cuda.py: STROKE_COLS, ...).
@@ -243,15 +275,8 @@ __host__ __device__ __forceinline__ I f2i(F f) {
   return (I)f;
 }
 
-// Exact floor division (render_dense._floor_div), int64: truncation
-// corrected for sign, as torch's div_floor_integer (the divisor is never 0).
-__host__ __device__ __forceinline__ Wrap<int64_t> floor_div(Wrap<int64_t> u, Wrap<int64_t> v) {
-  int64_t q = u.v / v.v;
-  if ((u.v % v.v) != 0 && ((u.v < 0) != (v.v < 0))) --q;
-  return Wrap<int64_t>(q);
-}
-
-// int32: the reference's f32 estimate and its four integer corrections.
+// Floor division (render_dense._floor_div), int32: the reference's f32
+// estimate and its four integer corrections.
 __host__ __device__ __forceinline__ Wrap<int32_t> floor_div(Wrap<int32_t> u, Wrap<int32_t> v) {
   Wrap<int32_t> q = f2i<int32_t>(floorf((float)u.v / (float)v.v));
   Wrap<int32_t> r = u - q * v;
@@ -265,8 +290,7 @@ __host__ __device__ __forceinline__ Wrap<int32_t> floor_div(Wrap<int32_t> u, Wra
   return q;
 }
 
-template <typename I>
-__host__ __device__ __forceinline__ Wrap<I> ceil_div2(Wrap<I> a, Wrap<I> b) {
+__host__ __device__ __forceinline__ Wrap<int32_t> ceil_div2(Wrap<int32_t> a, Wrap<int32_t> b) {
   return -floor_div(-a, b);
 }
 
@@ -661,53 +685,117 @@ struct Crossing {
   bool active;
 };
 
-// _fill_rows' crossing of one edge with `row`; a and b only when active
-// (an inactive edge's are never read).
+// _fill_crossings' divisions of one edge: floor_div(., max(2 * ady, 1))
+// (steep) and ceil_div2(., 2 * max(ady, 1)) (shallow).  Exact: one
+// reciprocal, since on an active row ady >= 1 and the two divisors are
+// the same number.  Fast: the reference's estimate by each divisor as it
+// computes it (its int32 differences may wrap).
+template <typename I> struct EdgeDiv;
+template <>
+struct EdgeDiv<int64_t> {
+  FloorDiv64 f;
+  EdgeDiv() = default;
+  __host__ __device__ explicit EdgeDiv(Wrap<int64_t> ady) : f((2 * wmax(ady, 1)).v) {}
+  __host__ __device__ __forceinline__ Wrap<int64_t> floor_steep(Wrap<int64_t> n) const {
+    return f(n);
+  }
+  __host__ __device__ __forceinline__ Wrap<int64_t> ceil_shallow(Wrap<int64_t> n) const {
+    return -f(-n);
+  }
+};
+template <>
+struct EdgeDiv<int32_t> {
+  Wrap<int32_t> steep, shallow;
+  EdgeDiv() = default;
+  __host__ __device__ explicit EdgeDiv(Wrap<int32_t> ady)
+      : steep(wmax(2 * ady, 1)), shallow(2 * wmax(ady, 1)) {}
+  __host__ __device__ __forceinline__ Wrap<int32_t> floor_steep(Wrap<int32_t> n) const {
+    return floor_div(n, steep);
+  }
+  __host__ __device__ __forceinline__ Wrap<int32_t> ceil_shallow(Wrap<int32_t> n) const {
+    return ceil_div2(n, shallow);
+  }
+};
+
+// One fill edge's row-independent constants (the per-edge half of
+// _fill_crossings, render_dense.py:396).  live: a real edge (its lane is
+// under the item's count) whose rows (ytop, ybot] meet the unit's; a
+// dead one is never active and builds no divisor.
 template <typename I>
-__host__ __device__ Crossing<I> fill_crossing(Wrap<I> x1, Wrap<I> y1, Wrap<I> x2, Wrap<I> y2,
-                                              bool mask, Wrap<I> row) {
-  Crossing<I> c;
-  c.active = row > wmin(y1, y2) && row <= wmax(y1, y2) && mask;
-  c.a = c.b = 0;
-  if (!c.active) return c;
-  Wrap<I> adx = wabs(x2 - x1), ady = wabs(y2 - y1);
-  Wrap<I> sx = x1 < x2 ? 1 : -1;
-  Wrap<I> j = wabs(row - y1);
-  if (ady > adx) {  // steep
-    c.a = c.b = x1 + sx * floor_div(2 * j * adx + ady, wmax(2 * ady, 1));
+struct FillEdge {
+  Wrap<I> x1, y1, ytop, ybot, adx, ady;
+  EdgeDiv<I> div;
+  bool live, steep, neg;  // neg: sx = -1
+
+  __host__ __device__ FillEdge() : live(false) {}
+  __host__ __device__ FillEdge(Wrap<I> ex1, Wrap<I> ey1, Wrap<I> x2, Wrap<I> y2, bool real,
+                               Wrap<I> row_lo, Wrap<I> row_hi)
+      : x1(ex1), y1(ey1), ytop(wmin(ey1, y2)), ybot(wmax(ey1, y2)) {
+    live = real && ytop < ybot && ytop < row_hi && ybot >= row_lo;
+    adx = wabs(x2 - x1);
+    ady = wabs(y2 - y1);
+    steep = ady > adx;
+    neg = !(x1 < x2);
+    if (live) div = EdgeDiv<I>(ady);
+  }
+
+  // The crossing with `row`; a and b only when active (an inactive
+  // edge's are never read).
+  __host__ __device__ Crossing<I> crossing(Wrap<I> row) const {
+    Crossing<I> c;
+    c.active = live && row > ytop && row <= ybot;
+    c.a = c.b = 0;
+    if (!c.active) return c;
+    const Wrap<I> sx = neg ? -1 : 1;
+    const Wrap<I> j = wabs(row - y1);
+    if (steep) {
+      c.a = c.b = x1 + sx * div.floor_steep(2 * j * adx + ady);
+      return c;
+    }
+    Wrap<I> i_min = wmin(wmax(div.ceil_shallow(adx * (2 * j - 1)), 0), adx);
+    Wrap<I> i_max = wmin(wmax(div.ceil_shallow(adx * (2 * j + 1)) - 1, 0), adx);
+    Wrap<I> lo = x1 + sx * i_min, hi = x1 + sx * i_max;
+    c.a = wmin(lo, hi);
+    c.b = wmax(lo, hi);
     return c;
   }
-  Wrap<I> ady_nz = wmax(ady, 1);
-  Wrap<I> i_min = wmin(wmax(ceil_div2(adx * (2 * j - 1), 2 * ady_nz), 0), adx);
-  Wrap<I> i_max = wmin(wmax(ceil_div2(adx * (2 * j + 1), 2 * ady_nz) - 1, 0), adx);
-  Wrap<I> lo = x1 + sx * i_min, hi = x1 + sx * i_max;
-  c.a = wmin(lo, hi);
-  c.b = wmax(lo, hi);
-  return c;
-}
+};
 
-// The stable argsort rank (render_dense.py:432-436) of active edge i of a
-// row's active list (lane order), by counting: the active edges before it
-// by (a, lane), plus the inactive lanes, whose sort key is `big`, that
-// come before it (all of them when a_i > big, those of a lower lane when
-// a_i == big).
+// The stable argsort rank (render_dense.py:432-436) of active entry i,
+// edge e, of a row's active list (edge order), by counting: the active
+// edges before it by (a, edge), plus the inactive lanes, whose sort key
+// is `big`, that come before it (all of them when a_i > big, those of a
+// lower edge when a_i == big).
 template <typename I>
-__host__ __device__ int stable_rank(const I* la, const int* lane, int n, int i, int E) {
+__host__ __device__ int stable_rank(const I* la, int n, int i, int e, int E) {
   const I big = sizeof(I) == 8 ? ((I)1 << 60) : ((I)1 << 30);
   I ai = la[i];
   int rank = 0;
   for (int j = 0; j < n; ++j) rank += la[j] < ai || (la[j] == ai && j < i);
   if (ai > big) rank += E - n;
-  else if (ai == big) rank += lane[i] - i;
+  else if (ai == big) rank += e - i;
   return rank;
 }
 
-// _fill_pixels (render_dense.py:442) at column x over the active list.
+// _fill_pixels (render_dense.py:442) at column x over a row's active list.
+// A row's stretch holds E >= 4 entries, so its first four are read
+// together, unconditionally (one shared-memory latency, not a chain); the
+// rest, where a row has more, in a loop.
 template <typename I>
-__host__ __device__ bool fill_filled(const I* la, const I* lb, const int* odd, int n, Wrap<I> x) {
+__host__ __device__ bool fill_filled(const I* la, const I* lb, const uint16_t* odd, int n,
+                                     Wrap<I> x) {
   int N = 0;
   bool tail = false;
-  for (int i = 0; i < n; ++i) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const I a = la[i], b = lb[i];
+    const bool o = odd[i] != 0;
+    if (i < n && a <= x.v) {
+      ++N;
+      tail = tail || (o && x.v <= b);
+    }
+  }
+  for (int i = 4; i < n; ++i) {
     if (la[i] <= x.v) {
       ++N;
       tail = tail || (odd[i] && x.v <= lb[i]);
@@ -715,6 +803,14 @@ __host__ __device__ bool fill_filled(const I* la, const I* lb, const int* odd, i
   }
   bool parity = (N & 1) == 1 && !(N == n && (n & 1) == 1);
   return parity || tail;
+}
+
+// Rows a fill unit of bucket E holds (dense_cuda.fill_unit_rows): the
+// most, up to FILL_MAX_ROWS, whose R x E crossings fit FILL_PAIRS with
+// every edge active on every row; past FILL_PAIRS, one row, the list in
+// global scratch.
+__host__ __device__ __forceinline__ int fill_unit_rows(int64_t E) {
+  return E > FILL_PAIRS ? 1 : (int)min64(FILL_MAX_ROWS, FILL_PAIRS / E);
 }
 
 // --------------------------------------------------------------------------
@@ -763,26 +859,16 @@ struct Params {
   const void* canvas;       // (3,) F
   const int64_t* strokes;   // (NS, STROKE_COLS)
   const int64_t* fills;     // (NF, FILL_COLS)
-  const int64_t* fill_rows; // (NF + 1,) window-row prefix sums
+  const int64_t* fill_units; // (NFU,) fill units: item << 32 | first row << 8 | rows
   const int64_t* groups;    // (NG, GROUP_COLS), per tile in paint order
   const int64_t* tile_ptr;  // (T + 1,) each tile's range of groups
   void* pending;            // (pending_size,) F
   uint8_t* out;             // (T, ts, ts, 3)
-  void* scratch;            // fill active lists past SMEM_EDGES, or null
+  void* scratch;            // fill lists of units past FILL_PAIRS, or null
   const int64_t* units;     // (NU,) stroke units: item << 32 | row << 16 | column
   int64_t* tables;          // (NU, TABLE_COLS) band tables written for the tests, or null
   int64_t d[N_DIMS];
 };
-
-// The item whose [prefix[i], prefix[i + 1]) holds `idx` (prefix[0] = 0).
-__device__ __forceinline__ int64_t find_item(const int64_t* prefix, int64_t n, int64_t idx) {
-  int64_t lo = 0, hi = n;  // prefix[lo] <= idx < prefix[hi]
-  while (hi - lo > 1) {
-    int64_t mid = (lo + hi) >> 1;
-    if (prefix[mid] <= idx) lo = mid; else hi = mid;
-  }
-  return lo;
-}
 
 __device__ __forceinline__ void pending_max(float* p, float v) {
   int bits = __float_as_int(v);
@@ -928,60 +1014,117 @@ dense_stroke_alpha(const Params p, bool chain) {
 template <typename I, typename F>
 __global__ void __launch_bounds__(32 * FILL_WARPS)
 dense_fill_alpha(const Params p) {
-  __shared__ I s_a[FILL_WARPS][SMEM_EDGES];
-  __shared__ I s_b[FILL_WARPS][SMEM_EDGES];
-  __shared__ int s_tag[FILL_WARPS][SMEM_EDGES];
+  __shared__ I s_a[FILL_WARPS][FILL_PAIRS];
+  __shared__ I s_b[FILL_WARPS][FILL_PAIRS];
+  __shared__ uint16_t s_tag[FILL_WARPS][FILL_PAIRS];
+  __shared__ int s_n[FILL_WARPS][FILL_MAX_ROWS];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int64_t G = p.d[D_G], n_rows = p.d[D_NROWS], e_max = p.d[D_EMAX];
+  const unsigned below = (1u << lane) - 1u;
+  const int64_t G = p.d[D_G], e_max = p.d[D_EMAX];
+  const int32_t* geom = p.geom;
   const F* opacity = static_cast<const F*>(p.opacity);
   F* pending = static_cast<F*>(p.pending);
   const int64_t gwarp = (int64_t)blockIdx.x * FILL_WARPS + warp;
-  // A warp's active list: (a, b, tag) in shared memory, or its slice of
-  // the global scratch when a bucket is wider than SMEM_EDGES.
-  I* la = s_a[warp];
-  I* lb = s_b[warp];
-  int* tag = s_tag[warp];
-  if (p.scratch != nullptr) {
-    char* base = static_cast<char*>(p.scratch) + gwarp * e_max * (2 * sizeof(I) + sizeof(int));
-    la = reinterpret_cast<I*>(base);
-    lb = la + e_max;
-    tag = reinterpret_cast<int*>(lb + e_max);
-  }
-  for (int64_t row = gwarp; row < n_rows; row += (int64_t)gridDim.x * FILL_WARPS) {
-    int64_t item = find_item(p.fill_rows, p.d[D_NF], row);
-    const int64_t* it = p.fills + item * FILL_COLS;
-    const int64_t t = it[F_T], first = it[F_FIRST], cnt = it[F_CNT];
-    const int E = (int)it[F_E];
-    const int64_t y = it[F_Y0] + (row - p.fill_rows[item]);
-    // Compact the active edges in lane order.
-    int n = 0;
-    for (int e0 = 0; e0 < E; e0 += 32) {
-      int e = e0 + lane;
-      Crossing<I> c;
-      c.active = false;
-      if (e < E) {
-        const int32_t* g = p.geom + 4 * (t * G + min64(first + e, G - 1));
-        c = fill_crossing<I>((I)g[0], (I)g[1], (I)g[2], (I)g[3], e < cnt, Wrap<I>((I)y));
+  int* n_row = s_n[warp];
+  for (int64_t u = gwarp; u < p.d[D_NFU]; u += (int64_t)gridDim.x * FILL_WARPS) {
+    // (a) The unit, then its item's descriptor, a column a lane.
+    const int64_t code = p.fill_units[u];
+    const int64_t col = lane < FILL_COLS ? p.fills[(code >> 32) * FILL_COLS + lane] : 0;
+    const int64_t t = __shfl_sync(FULL_MASK, col, F_T);
+    const int64_t first = __shfl_sync(FULL_MASK, col, F_FIRST);
+    const int64_t cnt = __shfl_sync(FULL_MASK, col, F_CNT);
+    const int64_t w = __shfl_sync(FULL_MASK, col, F_W);
+    const int64_t x0 = __shfl_sync(FULL_MASK, col, F_X0);
+    const int E = (int)__shfl_sync(FULL_MASK, col, F_E);
+    const int r0 = (int)((code >> 8) & 0xFFFFFF);
+    const int nr = (int)min64(code & 0xFF, fill_unit_rows(E));  // the host's, within the list
+    const int64_t ya = __shfl_sync(FULL_MASK, col, F_Y0) + r0;
+    const int64_t pw = __shfl_sync(FULL_MASK, col, F_PW);
+    F* prow = pending + __shfl_sync(FULL_MASK, col, F_OFF) + ya * pw;  // the unit's first row
+    const F fop = opacity[t * p.d[D_C] + __shfl_sync(FULL_MASK, col, F_C)];
+    // The unit's list: a stretch of E entries a row, at r * E.
+    I* la = s_a[warp];
+    I* lb = s_b[warp];
+    uint16_t* tag = s_tag[warp];
+    if (E > FILL_PAIRS) {
+      char* base = static_cast<char*>(p.scratch) + gwarp * e_max * (2 * sizeof(I) + 2);
+      la = reinterpret_cast<I*>(base);
+      lb = la + e_max;
+      tag = reinterpret_cast<uint16_t*>(lb + e_max);
+    }
+    if (lane < nr) n_row[lane] = 0;
+    __syncwarp();
+
+    // (b), (c) The (row, edge) pairs: epc edges a row, rps rows a step;
+    // a lane keeps one edge over the unit's rows.
+    const int epc = E < 32 ? E : 32, rps = 32 / epc;
+    const int rl = lane / epc, el = lane - rl * epc;
+    const unsigned seg = epc == 32 ? FULL_MASK : ((1u << epc) - 1u) << (rl * epc);
+    const int64_t live = min64(cnt, E);
+    const Wrap<I> row_lo = (I)ya, row_hi = (I)(ya + nr - 1);
+    for (int64_t e0 = 0; e0 < live; e0 += epc) {
+      const int64_t e = e0 + el;
+      FillEdge<I> ed;
+      if (e < live) {
+        const int32_t* g = geom + 4 * (t * G + min64(first + e, G - 1));
+        ed = FillEdge<I>((I)g[0], (I)g[1], (I)g[2], (I)g[3], true, row_lo, row_hi);
       }
-      unsigned m = __ballot_sync(FULL_MASK, c.active);
-      if (c.active) {
-        int at = n + __popc(m & ((1u << lane) - 1u));
-        la[at] = c.a.v;
-        lb[at] = c.b.v;
-        tag[at] = e;
+      for (int rb = 0; rb < nr; rb += rps) {
+        const int r = rb + rl;
+        Crossing<I> c;
+        c.active = false;
+        if (r < nr) c = ed.crossing(Wrap<I>((I)(ya + r)));
+        const unsigned m = __ballot_sync(FULL_MASK, c.active);
+        if (m == 0) continue;
+        const unsigned mine = m & seg;
+        if (c.active) {
+          const int at = r * E + n_row[r] + __popc(mine & below);
+          la[at] = c.a.v;
+          lb[at] = c.b.v;
+          tag[at] = (uint16_t)e;
+        }
+        __syncwarp();
+        if (el == 0 && r < nr) n_row[r] += __popc(mine);
+        __syncwarp();
       }
-      n += __popc(m);
+    }
+
+    // (d) Rank parity, a lane an active pair.  stable_rank reads every a
+    // of its row but only its own entry's edge, so each thread may
+    // overwrite its own entries' tags.
+    for (int k = lane; k < nr * E; k += 32) {
+      const int r = (int)((unsigned)k / (unsigned)E), i = k - r * E;
+      const int n = n_row[r];
+      if (i < n) tag[k] = (uint16_t)(stable_rank<I>(la + r * E, n, i, tag[k], E) & 1);
     }
     __syncwarp();
-    // Rank parity.  stable_rank reads every a but only its own entry's
-    // lane, so each thread may overwrite its own entries' tags.
-    for (int i = lane; i < n; i += 32) tag[i] = stable_rank<I>(la, tag, n, i, E) & 1;
-    __syncwarp();
-    const F fop = opacity[t * p.d[D_C] + it[F_C]];
-    const int64_t x0 = it[F_X0], w = it[F_W];
-    F* prow = pending + it[F_OFF] + y * it[F_PW];
-    for (int64_t x = x0 + lane; x < x0 + w; x += 32)
-      if (fill_filled<I>(la, lb, tag, n, Wrap<I>((I)x))) pending_max(prow + x, fop);
+
+    // (e) The unit's pixels, row-major, two a lane a round: (r, lx) and
+    // the pixel 32 after it, (r2, lx2).
+    const unsigned wu = (unsigned)w, dr = 32 / wu, dx = 32 - dr * wu;
+    const unsigned nru = (unsigned)nr;
+    auto advance = [&](unsigned& rr, unsigned& xx) {
+      rr += dr;
+      xx += dx;
+      if (xx >= wu) {
+        xx -= wu;
+        ++rr;
+      }
+    };
+    unsigned r = lane / wu, lx = lane - r * wu;
+    while (r < nru) {
+      unsigned r2 = r, lx2 = lx;
+      advance(r2, lx2);
+      const bool f1 = fill_filled<I>(la + r * E, lb + r * E, tag + r * E, n_row[r],
+                                     Wrap<I>((I)(x0 + lx)));
+      const bool f2 = r2 < nru && fill_filled<I>(la + r2 * E, lb + r2 * E, tag + r2 * E,
+                                                 n_row[r2], Wrap<I>((I)(x0 + lx2)));
+      if (f1) pending_max(prow + r * pw + x0 + lx, fop);
+      if (f2) pending_max(prow + r2 * pw + x0 + lx2, fop);
+      r = r2;
+      lx = lx2;
+      advance(r, lx);
+    }
     __syncwarp();
   }
 }
@@ -1102,7 +1245,7 @@ Params make_params(const void* const* ptrs, const int64_t* dims) {
   p.canvas = ptrs[P_CANVAS];
   p.strokes = static_cast<const int64_t*>(ptrs[P_STROKES]);
   p.fills = static_cast<const int64_t*>(ptrs[P_FILLS]);
-  p.fill_rows = static_cast<const int64_t*>(ptrs[P_FILL_ROWS]);
+  p.fill_units = static_cast<const int64_t*>(ptrs[P_FILL_UNITS]);
   p.groups = static_cast<const int64_t*>(ptrs[P_GROUPS]);
   p.tile_ptr = static_cast<const int64_t*>(ptrs[P_TILE_PTR]);
   p.pending = const_cast<void*>(ptrs[P_PENDING]);
@@ -1152,9 +1295,9 @@ int osmr_dense_stroke_alpha(const void* const* ptrs, const int64_t* dims, int ex
 
 int osmr_dense_fill_alpha(const void* const* ptrs, const int64_t* dims, int exact, void* stream) {
   Params p = make_params(ptrs, dims);
-  if (p.d[D_FILL_BLOCKS] < 1 || p.d[D_NROWS] < 1) return 0;
-  if (p.d[D_EMAX] > SMEM_EDGES && p.scratch == nullptr) return (int)cudaErrorInvalidValue;
-  if (p.d[D_EMAX] <= SMEM_EDGES) p.scratch = nullptr;
+  if (p.d[D_FILL_BLOCKS] < 1 || p.d[D_NFU] < 1) return 0;
+  if (p.d[D_EMAX] > FILL_PAIRS && p.scratch == nullptr) return (int)cudaErrorInvalidValue;
+  if (p.d[D_EMAX] <= FILL_PAIRS) p.scratch = nullptr;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   unsigned blocks = (unsigned)p.d[D_FILL_BLOCKS];
   if (exact)
@@ -1198,12 +1341,13 @@ int osmr_dense_kernel_attrs(int exact, int64_t* out) {
 int osmr_dense_constants(int64_t* out) {
   out[0] = N_PTRS;
   out[1] = N_DIMS;
-  out[2] = SMEM_EDGES;
+  out[2] = FILL_PAIRS;
   out[3] = FILL_WARPS;
   out[4] = UNIT_SIDE;
   out[5] = TABLE_COLS;
   out[6] = EXACT_COORD_BOUND;
   out[7] = FAST_COORD_BOUND;
+  out[8] = FILL_MAX_ROWS;
   return 0;
 }
 

@@ -119,10 +119,17 @@ def rle_library(ptxas_verbose: bool = False) -> ctypes.CDLL:
     return lib
 
 
-def dense_library(ptxas_verbose: bool = False) -> ctypes.CDLL:
+def dense_constants() -> tuple:
+    """The constants csrc/dense.cu's osmr_dense_constants must report, in
+    its order."""
     from osm_renderer_tpu_torch.ops import dense_cuda as DC
     from osm_renderer_tpu_torch.ops import render_dense as RD
 
+    return (DC.N_PTRS, DC.N_DIMS, DC.FILL_PAIRS, DC.FILL_WARPS, DC.UNIT_SIDE, DC.TABLE_COLS,
+            RD.WINDOW_COORD_BOUND["exact"], RD.WINDOW_COORD_BOUND["fast"], DC.FILL_MAX_ROWS)
+
+
+def dense_library(ptxas_verbose: bool = False) -> ctypes.CDLL:
     lib = load_library("dense.cu", ptxas_verbose)
     P, I = ctypes.c_void_p, ctypes.c_int
     # ptrs, dims, exact, [chain,] stream
@@ -135,10 +142,9 @@ def dense_library(ptxas_verbose: bool = False) -> ctypes.CDLL:
                lib.osmr_dense_constants):
         fn.restype = ctypes.c_int
     lib.osmr_dense_constants.argtypes = [P]
-    got = (ctypes.c_int64 * 8)()
+    want = dense_constants()
+    got = (ctypes.c_int64 * len(want))()
     lib.osmr_dense_constants(got)
-    want = (DC.N_PTRS, DC.N_DIMS, DC.SMEM_EDGES, DC.FILL_WARPS, DC.UNIT_SIDE, DC.TABLE_COLS,
-            RD.WINDOW_COORD_BOUND["exact"], RD.WINDOW_COORD_BOUND["fast"])
     if tuple(got) != want:
         raise RuntimeError(f"csrc/dense.cu's constants {tuple(got)} differ from "
                            f"ops/dense_cuda.py's {want}")

@@ -12,10 +12,11 @@ that `render_dense.plan_batch` builds on the host:
 * `pack_plan(plan, n_tiles)` -> `DensePack`: the kernels' arguments as
   one int64 buffer, made on the host before the upload: the stroke
   items with the prefix sums of their window areas, the fill items with
-  their edge bucket and the prefix sums of their window rows, the
-  groups in paint order per tile, and the stroke kernel's work units
-  (each window cut into rectangles of at most UNIT_SIDE x UNIT_SIDE
-  pixels, one a warp).
+  their edge bucket, the groups in paint order per tile, the stroke
+  kernel's work units (each window cut into rectangles of at most
+  UNIT_SIDE x UNIT_SIDE pixels, one a warp) and the fill kernel's
+  (each window's rows cut into runs of at most `fill_unit_rows(E)`
+  rows and FILL_UNIT_PX pixels, one a warp).
 * `stroke_alpha`, `fill_alpha`: phase 1, max-reduced into the flat
   pending buffer (`new_pending`); `blend_finalize`: phase 2 and the u8
   finalize -> (T, ts, ts, 3) uint8; `render_batch`: the three.  For
@@ -53,7 +54,8 @@ FILL_COLS = 11   # t c first count y0 x0 h w pend_off pend_w E
 GROUP_COLS = 7   # t c y0 x0 h w base (BatchPlan.groups)
 # Constants shared with csrc/dense.cu (checked when the library loads).
 N_PTRS, N_DIMS = 21, 14
-SMEM_EDGES = 512  # a fill warp's active list in shared memory up to this bucket
+FILL_PAIRS = 256  # a fill warp's list of (row, edge) crossings in shared memory
+FILL_MAX_ROWS = 32  # rows a fill unit holds at most
 FILL_WARPS = 4
 UNIT_SIDE = 32    # a stroke work unit: at most UNIT_SIDE x UNIT_SIDE window pixels
 # A unit's band table as the stroke kernel writes it when asked (the
@@ -62,20 +64,26 @@ UNIT_SIDE = 32    # a stroke work unit: at most UNIT_SIDE x UNIT_SIDE window pix
 # many rule words.
 TABLE_COLS = 4 + 4 * UNIT_SIDE
 UNIT_EMPTY, UNIT_TABLE, UNIT_PER_PIXEL = 0, 1, 2
-# Fill CTAs: enough to fill the card; fewer when the active lists live in
-# global scratch (a slice of e_max entries a warp).
+# Fill CTAs: enough to fill the card; fewer when a bucket is wider than
+# FILL_PAIRS (its units' lists live in global scratch, a slice of e_max
+# entries a warp).
 FILL_BLOCKS = 132 * 16
 FILL_BLOCKS_SCRATCH = 132 * 2
+# Window pixels a fill unit holds at most (a one-row unit may hold more):
+# the host's bound on a fill warp's pixel rounds, for wide windows.
+FILL_UNIT_PX = 512
 
 
 class DensePack(NamedTuple):
     """The kernels' packed arguments (int64, one buffer):
     strokes (n_strokes, STROKE_COLS), their window-pixel prefix sums
-    (n_strokes + 1), fills (n_fills, FILL_COLS), their window-row prefix
-    sums (n_fills + 1), groups (n_groups, GROUP_COLS) sorted by (tile,
-    chunk), each tile's group range (n_tiles + 1), and the stroke work
-    units (n_units,): item << 32 | row << 16 | column of the unit's
-    first pixel in its item's window."""
+    (n_strokes + 1), fills (n_fills, FILL_COLS), groups (n_groups,
+    GROUP_COLS) sorted by (tile, chunk), each tile's group range
+    (n_tiles + 1), the stroke work units (n_units,): item << 32 | row
+    << 16 | column of the unit's first pixel in its item's window, and
+    the fill units (n_fill_units,): item << 32 | first row << 8 | rows
+    of the unit in its item's window.  fill_rows: the fills' window
+    rows."""
     buf: torch.Tensor
     ts: int
     precision: str
@@ -88,15 +96,16 @@ class DensePack(NamedTuple):
     n_groups: int
     pending_size: int
     n_units: int
+    n_fill_units: int
 
     def to(self, device) -> "DensePack":
         return self._replace(buf=self.buf.to(device))
 
     def views(self) -> Tuple[torch.Tensor, ...]:
-        """(strokes, stroke_prefix, fills, fill_prefix, groups, tile_ptr)."""
+        """(strokes, stroke_prefix, fills, groups, tile_ptr)."""
         shapes = ((self.n_strokes, STROKE_COLS), (self.n_strokes + 1,),
-                  (self.n_fills, FILL_COLS), (self.n_fills + 1,),
-                  (self.n_groups, GROUP_COLS), (self.n_tiles + 1,))
+                  (self.n_fills, FILL_COLS), (self.n_groups, GROUP_COLS),
+                  (self.n_tiles + 1,))
         out, at = [], 0
         for shape in shapes:
             n = int(np.prod(shape))
@@ -105,8 +114,13 @@ class DensePack(NamedTuple):
         return tuple(out)
 
     def units(self) -> torch.Tensor:
-        """The stroke work units, the buffer's last n_units values."""
-        return self.buf[self.buf.numel() - self.n_units:]
+        """The stroke work units."""
+        end = self.buf.numel() - self.n_fill_units
+        return self.buf[end - self.n_units:end]
+
+    def fill_units(self) -> torch.Tensor:
+        """The fill units, the buffer's last n_fill_units values."""
+        return self.buf[self.buf.numel() - self.n_fill_units:]
 
 
 def pack_plan(plan: RD.BatchPlan, n_tiles: int) -> DensePack:
@@ -122,15 +136,15 @@ def pack_plan(plan: RD.BatchPlan, n_tiles: int) -> DensePack:
     groups = groups[np.lexsort((groups[:, 1], groups[:, 0]))]
     tile_ptr = np.searchsorted(groups[:, 0], np.arange(n_tiles + 1), "left")
     units = stroke_units(strokes)
+    funits = fill_units(fills)
     buf = np.concatenate([
-        strokes.ravel(), np.concatenate([[0], np.cumsum(spx)]),
-        fills.ravel(), np.concatenate([[0], np.cumsum(fills[:, 6])]),
-        groups.ravel(), tile_ptr, units,
+        strokes.ravel(), np.concatenate([[0], np.cumsum(spx)]), fills.ravel(),
+        groups.ravel(), tile_ptr, units, funits,
     ]).astype(np.int64)
     return DensePack(torch.from_numpy(buf), plan.ts, plan.precision, int(n_tiles),
                      strokes.shape[0], int(spx.sum()), fills.shape[0], int(fills[:, 6].sum()),
                      int(fills[:, 10].max(initial=0)), groups.shape[0], int(plan.pending_size),
-                     units.size)
+                     units.size, funits.size)
 
 
 def stroke_units(strokes: np.ndarray) -> np.ndarray:
@@ -145,6 +159,37 @@ def stroke_units(strokes: np.ndarray) -> np.ndarray:
     item = np.repeat(np.arange(h.size, dtype=np.int64), count)
     j = np.arange(item.size, dtype=np.int64) - np.repeat(np.cumsum(count) - count, count)
     return (item << 32) | ((j // nux[item] * UNIT_SIDE) << 16) | (j % nux[item] * UNIT_SIDE)
+
+
+def fill_unit_rows(E: np.ndarray) -> np.ndarray:
+    """Rows a fill unit of edge bucket E holds: the most, up to
+    FILL_MAX_ROWS, whose R x E crossings fit a warp's FILL_PAIRS with
+    every edge active on every row; past FILL_PAIRS, 1 (its list in
+    global scratch).  csrc/dense.cu::fill_unit_rows computes the same."""
+    E = np.asarray(E, np.int64)
+    return np.where(E > FILL_PAIRS, 1, np.minimum(FILL_MAX_ROWS, FILL_PAIRS // np.maximum(E, 1)))
+
+
+def fill_units(fills: np.ndarray) -> np.ndarray:
+    """Each fill item's window rows (column 6: h) cut into runs of at
+    most fill_unit_rows(E) rows (column 10: E) and FILL_UNIT_PX pixels
+    (column 7: w; one row at least), in order within the item, the items
+    of the widest bucket first (their units take the longest) ->
+    (n_fill_units,) int64 item << 32 | first row << 8 | rows."""
+    h, w, E = fills[:, 6], fills[:, 7], fills[:, 10]
+    if E.size and (E.min() < 4 or E.max() > 1 << 16 or (E & (E - 1)).any()):
+        raise BatchLayoutError(f"fill buckets {sorted(set(E.tolist()))}: want powers of two "
+                               "from 4 to 65536")
+    if h.size and h.max() >= 1 << 24:
+        raise BatchLayoutError(f"a fill window of {h.max()} rows; at most 2**24 - 1")
+    rows = np.clip(FILL_UNIT_PX // np.maximum(w, 1), 1, fill_unit_rows(E))
+    count = -(-h // rows)
+    order = np.argsort(-E, kind="stable")
+    item = np.repeat(order, count[order])
+    j = np.arange(item.size, dtype=np.int64) - np.repeat(np.cumsum(count[order]) - count[order],
+                                                         count[order])
+    r0 = j * rows[item]
+    return (item << 32) | (r0 << 8) | np.minimum(rows[item], h[item] - r0)
 
 
 def new_pending(batch: RD.TileBatch, pack: DensePack) -> torch.Tensor:
@@ -207,17 +252,17 @@ def kernel_arguments(batch, pack, pending, *, canvas=None, out=None, scratch=Non
     `tables`: a zeroed (n_units, TABLE_COLS) int64 tensor the stroke
     kernel fills with each unit's band table (the tests'; None in the
     wrappers)."""
-    strokes, _, fills, fprefix, groups, tile_ptr = pack.views()
+    strokes, _, fills, groups, tile_ptr = pack.views()
     b = batch
     ptrs = [b.geom, b.geom_traveled, b.geom_profile, b.chunk_color, b.chunk_opacity,
             b.chunk_hw, b.chunk_pat, b.profiles, b.profile_total, b.patterns, canvas,
-            strokes, fills, fprefix, groups, tile_ptr, pending, out, scratch, pack.units(),
-            tables]
+            strokes, fills, pack.fill_units(), groups, tile_ptr, pending, out, scratch,
+            pack.units(), tables]
     ptr_arr = (ctypes.c_void_p * N_PTRS)(*[t.data_ptr() if t is not None and t.numel() else None
                                            for t in ptrs])
     dims = [b.geom.shape[0], b.geom.shape[1], b.chunk_kind.shape[1], b.profiles.shape[0],
             b.profiles.shape[1], b.patterns.shape[0], pack.ts, pack.n_strokes, pack.n_fills,
-            pack.fill_rows, pack.e_max, pack.n_groups, fill_blocks, pack.n_units]
+            pack.n_fill_units, pack.e_max, pack.n_groups, fill_blocks, pack.n_units]
     return ptr_arr, (ctypes.c_int64 * N_DIMS)(*dims)
 
 
@@ -284,15 +329,22 @@ def fill_alpha(batch: RD.TileBatch, pack: DensePack, pending: torch.Tensor) -> N
     _check(batch, pack, pending)
     if not _on_cuda(pending, "fill_alpha"):
         fill_alpha_plain(batch, pack, pending)
-    elif pack.n_fills:
-        blocks = FILL_BLOCKS if pack.e_max <= SMEM_EDGES else FILL_BLOCKS_SCRATCH
-        blocks = min(blocks, -(-pack.fill_rows // FILL_WARPS))
-        scratch = None
-        if pack.e_max > SMEM_EDGES:
-            isz = 8 if pack.precision == "exact" else 4
-            scratch = torch.empty(blocks * FILL_WARPS * pack.e_max * (2 * isz + 4),
-                                  dtype=torch.uint8, device=pending.device)
-        _launch("dense_fill_alpha", batch, pack, pending, scratch=scratch, fill_blocks=blocks)
+    elif pack.n_fill_units:
+        blocks = FILL_BLOCKS if pack.e_max <= FILL_PAIRS else FILL_BLOCKS_SCRATCH
+        blocks = min(blocks, -(-pack.n_fill_units // FILL_WARPS))
+        _launch("dense_fill_alpha", batch, pack, pending, fill_blocks=blocks,
+                scratch=fill_scratch(pack, blocks, pending.device))
+
+
+def fill_scratch(pack: DensePack, blocks: int, device) -> Optional[torch.Tensor]:
+    """The fill kernel's global lists when a bucket is wider than
+    FILL_PAIRS (e_max entries of a, b and a 16-bit tag a warp), else
+    None."""
+    if pack.e_max <= FILL_PAIRS:
+        return None
+    isz = 8 if pack.precision == "exact" else 4
+    return torch.empty(blocks * FILL_WARPS * pack.e_max * (2 * isz + 2), dtype=torch.uint8,
+                       device=device)
 
 
 def blend_finalize(batch: RD.TileBatch, canvas: torch.Tensor, pack: DensePack,
@@ -407,7 +459,7 @@ def blend_finalize_plain(batch: RD.TileBatch, canvas: torch.Tensor, pack: DenseP
     dev = pending.device
     C = torch.cat([canvas.expand(T, ts, ts, 3),
                    torch.ones((T, ts, ts, 1), dtype=canvas.dtype, device=dev)], dim=-1)
-    groups = pack.views()[4]
+    groups = pack.views()[3]
     npat = batch.patterns.shape[0]
     pats = batch.chunk_pat[groups[:, 0], groups[:, 1]].tolist()
     for (t, c, y0, x0, h, w, base), pat in zip(groups.tolist(), pats):

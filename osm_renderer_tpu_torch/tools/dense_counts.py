@@ -1,6 +1,7 @@
 """The dense kernels' work on one batch of `precision = exact`, counted
-on the host: what the stroke kernel's warps and the blend kernel's
-strips of `csrc/dense.cu` meet.  No device is used.
+on the host: what the stroke kernel's warps, the fill kernel's warps
+and the blend kernel's strips of `csrc/dense.cu` meet.  No device is
+used.
 
     python -m osm_renderer_tpu_torch.tools.dense_counts [--zoom 15] \\
         [--scale 1] [--tiles N] [--geodata assets/fixtures/bigcity.bin]
@@ -20,6 +21,12 @@ them by default), rendered at `--scale`:
   groups_per_tile   mean and max of the blend groups a tile
   groups_per_strip  the groups whose window meets a blend warp's strip
                  of BLEND_ROWS x RECT pixels, a strip on average
+  fills_by_E     the fill items by edge bucket E, as E:count
+  fill_rows, fill_px  the fills' window rows and window pixels
+  active_per_row the active (row, edge) pairs a fill window row, mean
+                 and `active_per_row_max`
+  fill_units     the fill kernel's units (dense_cuda.fill_units) and
+                 `rows_per_unit`, their mean rows
 """
 
 from __future__ import annotations
@@ -66,6 +73,36 @@ def kept_pixels(arrays, plan) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
         yield off + ys * pw + xs, a // (2 * mx_d[i])
 
 
+def fill_counts(arrays, plan) -> dict:
+    """The fill counts of the module's docstring for one batch."""
+    fills = DC.pack_plan(plan, np.asarray(arrays.geom).shape[0]).views()[2].numpy()
+    geom = np.asarray(arrays.geom).astype(np.int64)
+    G = geom.shape[1]
+    h, E = fills[:, 6], fills[:, 10]
+    n = np.minimum(fills[:, 3], E)
+    rep = np.repeat(np.arange(n.size), n)
+    slot = fills[rep, 2] + np.arange(rep.size) - np.repeat(np.cumsum(n) - n, n)
+    g = geom[fills[rep, 0], np.minimum(slot, G - 1)]
+    # The window rows each edge is active on: (ytop, ybot] within the window.
+    y0, y1 = fills[rep, 4], fills[rep, 4] + h[rep] - 1
+    lo = np.maximum(np.minimum(g[:, 1], g[:, 3]) + 1, y0)
+    hi = np.minimum(np.maximum(g[:, 1], g[:, 3]), y1)
+    ok = lo <= hi
+    base = (np.cumsum(h) - h)[rep] - y0
+    diff = np.zeros(int(h.sum()) + 1, np.int64)
+    np.add.at(diff, (base + lo)[ok], 1)
+    np.add.at(diff, (base + hi + 1)[ok], -1)
+    per_row = np.cumsum(diff)[:-1]
+    units = DC.fill_units(fills).size
+    buckets, count = np.unique(E, return_counts=True)
+    return dict(fills=int(fills.shape[0]),
+                fills_by_E=",".join(f"{b}:{c}" for b, c in zip(buckets.tolist(), count.tolist())),
+                fill_rows=int(h.sum()), fill_px=int((h * fills[:, 7]).sum()),
+                active_per_row=float(per_row.mean()) if per_row.size else 0.0,
+                active_per_row_max=int(per_row.max(initial=0)), fill_units=units,
+                rows_per_unit=float(h.sum()) / max(units, 1))
+
+
 def counts(arrays, plan) -> dict:
     """The counts of the module's docstring for one batch."""
     st = plan.strokes
@@ -87,7 +124,8 @@ def counts(arrays, plan) -> dict:
                 kept_px=kept, bands=bands, bands_per_unit=bands / max(units - empty, 1),
                 groups=int(gr.shape[0]), groups_per_tile=float(per_tile.mean()),
                 groups_per_tile_max=int(per_tile.max(initial=0)),
-                groups_per_strip=float(hits) / strips, pending=int(plan.pending_size))
+                groups_per_strip=float(hits) / strips, pending=int(plan.pending_size),
+                **fill_counts(arrays, plan))
 
 
 def main(argv=None) -> int:

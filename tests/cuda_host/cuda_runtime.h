@@ -4,9 +4,9 @@
 // vanish, __shared__ arrays become function statics, and a launch runs
 // its blocks one after another, each block one warp at a time, the
 // warp's 32 lanes as coroutines on the launching thread, which meet at
-// __ballot_sync, __syncwarp and __shfl_xor_sync.  The kernels cooperate
-// within a warp only (no __syncthreads), so warps in turn behave as
-// warps in parallel.
+// __ballot_sync, __syncwarp, __shfl_sync and __shfl_xor_sync.  The
+// kernels cooperate within a warp only (no __syncthreads), so warps in
+// turn behave as warps in parallel.
 #pragma once
 #include <stdint.h>
 #include <string.h>
@@ -84,15 +84,19 @@ inline unsigned __ballot_sync(unsigned, int pred) {
 }
 inline void __syncwarp(unsigned = 0xFFFFFFFFu) { __ballot_sync(0xFFFFFFFFu, 0); }
 template <typename T>
-inline T __shfl_xor_sync(unsigned, T v, int lane_mask) {
+inline T __shfl_sync(unsigned, T v, int src_lane) {
   static_assert(sizeof(T) <= 8, "a shuffle moves at most 8 bytes");
   const unsigned lane = threadIdx.x & 31;
   memcpy(&g_warp.value[lane], &v, sizeof(T));
   __syncwarp();
   T out;
-  memcpy(&out, &g_warp.value[lane ^ (unsigned)lane_mask], sizeof(T));
+  memcpy(&out, &g_warp.value[src_lane & 31], sizeof(T));
   __syncwarp();
   return out;
+}
+template <typename T>
+inline T __shfl_xor_sync(unsigned mask, T v, int lane_mask) {
+  return __shfl_sync(mask, v, (int)(threadIdx.x & 31) ^ lane_mask);
 }
 inline int __popc(unsigned v) { return __builtin_popcount(v); }
 inline int __float_as_int(float f) { int i; memcpy(&i, &f, 4); return i; }

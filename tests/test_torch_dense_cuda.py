@@ -8,7 +8,8 @@ both precisions, on one batch with the walk chain on: the window-margin
 fuzz scene, the oversize-coordinate scene and the mixed and round-capped
 dash scenes, one tile each.  The chain-off icon-fill batch and the @2x
 batch are in test_torch_dense_cuda_scenes.py.  Here too: the packing
-(paint-order group lists, prefix sums that cover every window once),
+(paint-order group lists, prefix sums and stroke and fill units that
+cover every window once),
 the counted stable rank against `torch.argsort(stable=True)`, the
 wrappers' CPU route, and that rendering dense on the CPU neither builds
 nor loads the CUDA library.  The kernels themselves run only on the
@@ -91,7 +92,7 @@ def test_pack_groups_in_paint_order_per_tile():
     arrays, _, plan = _scene_plan()
     T = len(arrays.geom)
     pack = DC.pack_plan(plan, T)
-    groups, tile_ptr = [v.numpy() for v in pack.views()[4:]]
+    groups, tile_ptr = [v.numpy() for v in pack.views()[3:]]
     assert tile_ptr[0] == 0 and tile_ptr[-1] == pack.n_groups == plan.groups.shape[0]
     for t in range(T):
         g = groups[tile_ptr[t]:tile_ptr[t + 1]]
@@ -107,7 +108,7 @@ def test_pack_groups_in_paint_order_per_tile():
 def test_pack_prefix_sums_cover_every_window_once():
     _, _, plan = _scene_plan()
     pack = DC.pack_plan(plan, 4)
-    strokes, sprefix, fills, fprefix = [v.numpy() for v in pack.views()[:4]]
+    strokes, sprefix, fills = [v.numpy() for v in pack.views()[:3]]
     assert pack.n_strokes == plan.strokes.shape[0] > 0 and pack.n_fills > 0
     # Strokes: flat pixel index -> (item, y, x), as the kernel maps it.
     idx = np.arange(pack.stroke_px)
@@ -121,11 +122,8 @@ def test_pack_prefix_sums_cover_every_window_once():
         np.add.at(seen, ly[sel] * w + lx[sel] + sprefix[i], 1)
         assert ly[sel].max() == h - 1 and lx[sel].max() == w - 1
     assert (seen == 1).all()
-    # Fills: flat row index -> (item, row); each item's rows once, and the
-    # bucket E holds its edges.
-    rows = np.arange(pack.fill_rows)
-    ritem = np.searchsorted(fprefix, rows, "right") - 1
-    assert (np.bincount(ritem, minlength=pack.n_fills) == fills[:, 6]).all()
+    # Fills: the bucket E holds its edges (the rows: the fill units' test).
+    assert pack.fill_rows == fills[:, 6].sum()
     assert ((fills[:, 10] >= fills[:, 3]) & (fills[:, 10] >= 4)).all()
     assert pack.e_max == fills[:, 10].max()
     assert sorted(map(tuple, fills[:, :10].tolist())) == sorted(
@@ -149,7 +147,52 @@ def test_pack_units_cover_every_window_pixel_once():
     assert np.array_equal(np.bincount(item, weights=nh * nw, minlength=pack.n_strokes),
                           plan.strokes[:, 5] * plan.strokes[:, 6])
     assert len(set(zip(item.tolist(), uy.tolist(), ux.tolist()))) == units.size
-    assert pack.buf.numel() == sum(v.numel() for v in pack.views()) + pack.n_units
+    assert pack.buf.numel() == (sum(v.numel() for v in pack.views()) + pack.n_units
+                                + pack.n_fill_units)
+
+
+@pytest.mark.parametrize("ts", [256, 512])
+def test_pack_fill_units_cover_every_window_row_once(ts):
+    """The fill kernel's units: runs of at most fill_unit_rows(E) rows
+    (R x E <= FILL_PAIRS, R <= FILL_MAX_ROWS; one row past FILL_PAIRS)
+    and FILL_UNIT_PX pixels (one row at least) that tile each item's
+    window rows exactly, in order within the item, the widest bucket
+    first; the pack's tail holds them."""
+    _, _, plan = _scene_plan(ts=ts)
+    pack = DC.pack_plan(plan, 4)
+    fills = pack.views()[2].numpy()
+    units = pack.fill_units().numpy()
+    assert units.size == pack.n_fill_units >= pack.n_fills > 0
+    assert np.array_equal(units, DC.fill_units(fills))
+    item, r0, nr = units >> 32, (units >> 8) & 0xFFFFFF, units & 0xFF
+    E, h, w = fills[item, 10], fills[item, 6], fills[item, 7]
+    R = DC.fill_unit_rows(E)
+    assert ((R * E <= DC.FILL_PAIRS) | (R == 1)).all() and (R <= DC.FILL_MAX_ROWS).all()
+    assert (R == np.where(E > DC.FILL_PAIRS, 1,
+                          np.minimum(DC.FILL_MAX_ROWS, DC.FILL_PAIRS // E))).all()
+    # Runs of R rows, fewer where FILL_UNIT_PX pixels end them first.
+    run = np.clip(DC.FILL_UNIT_PX // w, 1, R)
+    assert (r0 % run == 0).all() and (nr == np.minimum(run, h - r0)).all() and (nr > 0).all()
+    assert ((nr * w <= DC.FILL_UNIT_PX) | (nr == 1)).all() and (np.diff(E) <= 0).all()
+    seen = np.zeros(pack.fill_rows, np.int64)
+    base = np.concatenate([[0], np.cumsum(fills[:, 6])])
+    for i, a, n in zip(item.tolist(), r0.tolist(), nr.tolist()):
+        seen[base[i] + a:base[i] + a + n] += 1
+    assert (seen == 1).all()
+    first = np.flatnonzero(np.concatenate([[True], item[1:] != item[:-1]]))
+    assert np.unique(item).size == first.size == pack.n_fills
+    assert all((np.diff(r0[a:b]) > 0).all() for a, b in zip(first, list(first[1:]) + [item.size]))
+
+
+def test_fill_units_refuse_what_the_kernel_does_not_take():
+    """Buckets that are not powers of two, or wider than 65536 lanes (the
+    kernel's 16-bit edge tag)."""
+    fills = np.zeros((2, DC.FILL_COLS), np.int64)
+    fills[:, 6] = 10
+    for E in (12, 1 << 17):
+        fills[:, 10] = [4, E]
+        with pytest.raises(BatchLayoutError):
+            DC.fill_units(fills)
 
 
 def test_pass_one_keeps_every_stroke_pixel_with_an_alpha():

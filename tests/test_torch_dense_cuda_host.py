@@ -4,21 +4,24 @@ g++ compiles the kernel source behind tests/cuda_host/cuda_runtime.h, a
 header that stands in for the few CUDA pieces it uses (qualifiers,
 thread indices, a warp's 32 lanes as coroutines meeting at its ballots,
 barriers and shuffles, atomics), with each `kernel<<<...>>>(...)`
-launch rewritten to run its blocks on the host, one warp at a time.  Its three entry points, called
-through ops/dense_cuda.py's own argument packing (`_launch`), must give
-`render_dense.render_batch_plain`'s pending buffer and bytes (its
-`alphas`, then its `blend`), in both precisions: on the chained scenes
-of test_torch_dense_cuda.py, the icon-fill scene, one fill of 700 edges
-(a 1024-lane bucket: the fill kernel's global scratch) and scenes at
-@2x, @3x and @4x (ts 512, 768, 1024).  The stroke kernel's band tables
-are held entry by entry to band_start, start_alive and chain_alive
-evaluated directly, and the units past WINDOW_COORD_BOUND (the oversize
-scene) to the per-pixel rules; the reciprocal floor division to
-Python's `//`.  This checks the kernels' integer and float semantics
-where no card is: the wrapping arithmetic, floor division, the five FMA
-sites, the counted rank over the compacted active edges, the band
-tables, the paint-order walk.  What only the card shows (nvcc's code,
-the launch configuration, the device's conversions) is `chip_smoke.py`
+launch rewritten to run its blocks on the host, one warp at a time.
+Its three entry points, called through ops/dense_cuda.py's own argument
+packing (`_launch`), must give `render_dense.render_batch_plain`'s
+pending buffer and bytes (its `alphas`, then its `blend`), in both
+precisions: on the chained scenes of test_torch_dense_cuda.py, the
+icon-fill scene, one fill of 700 edges (a 1024-lane bucket: the fill
+kernel's global scratch), combs whose every edge is active on every
+row (a fill unit's list full), crossings that tie (rank ties), fills
+taller than a unit on a 512 px tile and scenes at @2x, @3x and @4x (ts
+512, 768, 1024).  The stroke kernel's band tables are held entry by
+entry to band_start, start_alive and chain_alive evaluated directly,
+and the units past WINDOW_COORD_BOUND (the oversize scene) to the
+per-pixel rules; the reciprocal floor division to Python's `//`.  This
+checks the kernels' integer and float semantics where no card is: the
+wrapping arithmetic, floor division, the five FMA sites, the counted
+rank over each row's compacted active edges, the band tables, the
+paint-order walk.  What only the card shows (nvcc's code, the launch
+configuration, the device's conversions) is `chip_smoke.py`
 phase 4c's.
 """
 
@@ -149,6 +152,48 @@ def _large_fill(prim):
                           edges=np.concatenate([pts[:-1], pts[1:]], 1))]
 
 
+def _closed(pts):
+    """A closed polygon's edge list from its vertices."""
+    pts = np.asarray(list(pts) + [pts[0]], np.int64)
+    return np.concatenate([pts[:-1], pts[1:]], 1)
+
+
+def _comb(x0, n, top, bottom, step):
+    """A closed zigzag of n edges (n even) between rows top and bottom:
+    every edge, the closing diagonal too, spans the rows (top, bottom],
+    so all n are active on each of them."""
+    k = np.arange(n)
+    return _closed(np.stack([x0 + step * k, np.where(k % 2 == 0, top, bottom)], 1))
+
+
+def scene_comb(prim):
+    """Combs of 8, 16, 32 and 64 near-vertical edges, 2 px apart: in
+    each bucket E a unit of R rows (R x E = FILL_PAIRS, narrow enough
+    for FILL_UNIT_PX) holds R x E active crossings, a warp's list full."""
+    return [prim.FillPrim(kind="fill", color=(40 + 40 * i, 120, 60 + 30 * i), opacity=0.9,
+                          edges=_comb(x0, n, 20 + 3 * i, 230 - 5 * i, 2))
+            for i, (x0, n) in enumerate(((10, 8), (30, 16), (70, 32), (120, 64)))]
+
+
+def scene_ties(prim):
+    """Crossings that tie on a row: a bow tie whose diagonals (the
+    shallow rule: adx == ady) cross at (100, 100), and two squares in one
+    fill sharing a side, whose two edges cross every row at x = 210."""
+    bow = _closed([(50, 50), (150, 150), (150, 50), (50, 150)])
+    shared = np.concatenate([_closed([(170, 20), (210, 20), (210, 90), (170, 90)]),
+                             _closed([(210, 20), (250, 20), (250, 90), (210, 90)])])
+    return [prim.FillPrim(kind="fill", color=(200, 60, 30), opacity=0.8, edges=bow),
+            prim.FillPrim(kind="fill", color=(30, 60, 200), opacity=1.0, edges=shared)]
+
+
+def scene_tall(prim):
+    """Fills of 460 and 400 rows on a 512 px tile: many units each."""
+    return [prim.FillPrim(kind="fill", color=(90, 90, 20), opacity=1.0,
+                          edges=_closed([(100, 30), (180, 40), (170, 490), (90, 470)])),
+            prim.FillPrim(kind="fill", color=(20, 90, 90), opacity=0.7,
+                          edges=_closed([(300, 60), (420, 300), (330, 459), (380, 250)]))]
+
+
 def scene_at(scale):
     """A tile at @3x or @4x (ts 768, 1024): two fills, round-capped dashes
     (the walk chain) and a segment leaving the tile, widths and dashes
@@ -181,6 +226,9 @@ SCENES = {
     "far": ([scene_far], 256, CHUNK),
     "icon": ([scene_icon], 256, CHUNK),
     "large_fill": ([_large_fill], 256, 1024),
+    "comb": ([scene_comb], 256, 64),
+    "ties": ([scene_ties], 256, CHUNK),
+    "tall": ([scene_tall], 512, CHUNK),
     "2x": ([lambda prim: scene_2x(prim)[1]], 512, CHUNK),
     "3x": ([scene_at(3)], 768, CHUNK),
     "4x": ([scene_at(4)], 1024, CHUNK),
@@ -206,19 +254,18 @@ def test_host_build_of_the_kernels_equals_the_plain_version(host_launch, tmp_pat
     arrays, chain, plan, pack, batch = _prepared(tmp_path, scene, precision)
     ts = plan.ts
     c = torch.from_numpy(canvas(precision))
-    if scene == "large_fill":
-        assert pack.e_max > DC.SMEM_EDGES
+    fills, units = pack.views()[2].numpy(), pack.fill_units().numpy()
+    E, nr = fills[units >> 32, 10], units & 0xFF
+    assert {"large_fill": pack.e_max > DC.FILL_PAIRS,
+            "comb": {8, 16, 32, 64} <= set(E[nr * E == DC.FILL_PAIRS].tolist()),
+            "tall": (fills[:, 6] > 10 * DC.FILL_MAX_ROWS).sum() == 2}.get(scene, True)
     # The kernels, launched as dense_cuda.render_batch launches them on a
     # card (a small fill grid: its warps stride over the rows).
     pending = DC.new_pending(batch, pack)
     host_launch("dense_stroke_alpha", batch, pack, pending, chain=chain)
     blocks = 2
-    scratch = None
-    if pack.e_max > DC.SMEM_EDGES:
-        isz = 8 if precision == "exact" else 4
-        scratch = torch.zeros(blocks * DC.FILL_WARPS * pack.e_max * (2 * isz + 4),
-                              dtype=torch.uint8)
-    host_launch("dense_fill_alpha", batch, pack, pending, scratch=scratch, fill_blocks=blocks)
+    host_launch("dense_fill_alpha", batch, pack, pending, fill_blocks=blocks,
+                scratch=DC.fill_scratch(pack, blocks, "cpu"))
     out = torch.empty((pack.n_tiles, ts, ts, 3), dtype=torch.uint8)
     host_launch("dense_blend_finalize", batch, pack, pending, canvas=c, out=out)
     with torch_threads(1):
@@ -264,6 +311,18 @@ def test_band_tables_equal_the_rules_evaluated_directly(host_lib, host_launch, t
     assert per_pixel == int((kept & past).sum())
     assert (per_pixel > 0) == (scene == "far" or (scene == "chain" and precision == "fast"))
     assert (tables[:, 2] <= 2 * DC.UNIT_SIDE).all()
+
+
+def test_host_build_shares_the_packing_constants(host_lib):
+    """The constants csrc/dense.cu reports (osmr_dense_constants, checked
+    against ops/dense_cuda.py when the card's build loads) agree with the
+    packing's, the fill unit's list and rows among them."""
+    from osm_renderer_tpu_torch.ops.build import dense_constants
+
+    host_lib.osmr_dense_constants.argtypes = [ctypes.c_void_p]
+    got = (ctypes.c_int64 * len(dense_constants()))()
+    host_lib.osmr_dense_constants(got)
+    assert tuple(got) == dense_constants()
 
 
 def test_reciprocal_floor_division_equals_python(host_lib):

@@ -145,6 +145,35 @@ def test_dense_counts_cli_on_the_cpu(mini_bin, capsys):
     got = dict(kv.split("=") for kv in out.split(": ", 1)[1].split())
     assert int(got["kept_px"]) <= int(got["window_px"]) and int(got["units"]) > 0
     assert int(got["groups"]) > 0 and float(got["groups_per_strip"]) > 0
+    assert int(got["fill_px"]) >= int(got["fill_rows"]) and int(got["fill_units"]) > 0
+
+
+def test_dense_counts_pins_the_fill_work_of_minicity_z15(tmp_path, capsys):
+    """The fill counts of the fill kernel's prediction, on minicity z15
+    x30 (tools/make_fixture.py's 24-block city, the port's importer):
+    fills by bucket, window rows and pixels, active (row, edge) pairs a
+    row, and the units fill_units cuts."""
+    from osm_renderer_tpu_torch.geodata.importer import import_osm
+    from osm_renderer_tpu_torch.ops import dense_cuda as DC
+    from osm_renderer_tpu_torch.tools import dense_counts
+
+    from tests.test_torch_helpers import make_minicity_osm, torch_threads
+
+    bin_path = str(tmp_path / "minicity.bin")
+    import_osm(make_minicity_osm(tmp_path), bin_path)
+    capsys.readouterr()  # the importer's progress lines
+    with torch_threads(1):
+        assert dense_counts.main(["--zoom", "15", "--geodata", bin_path]) == 0
+    out = capsys.readouterr().out
+    assert out.startswith("30 tiles z15 @1x: ")
+    got = dict(kv.split("=") for kv in out.split(": ", 1)[1].split())
+    assert got["fills"] == "2039" and got["fills_by_E"] == "4:2003,8:14,16:4,64:18"
+    assert (got["fill_rows"], got["fill_px"]) == ("19832", "630193")
+    assert (got["active_per_row"], got["active_per_row_max"]) == ("2.08", "4")
+    # Units: runs of up to 32 rows at E = 4 and 8, 16 at E = 16, 4 at E =
+    # 64 (R x E <= FILL_PAIRS), of at most FILL_UNIT_PX pixels.
+    assert [int(DC.fill_unit_rows(e)) for e in (4, 8, 16, 64)] == [32, 32, 16, 4]
+    assert int(got["fill_units"]) == 2948 and got["rows_per_unit"] == "6.73"
 
 
 # ---------------------------------------------------------------------------
