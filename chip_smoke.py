@@ -8,7 +8,8 @@ Phases (any failure exits non-zero; no phase is skipped):
 1. Card and toolchain: nvidia-smi name and power limit, torch and CUDA
    versions; the three kernel sources (csrc/render.cu, csrc/rle.cu,
    csrc/dense.cu) built by nvcc at once, with build times and ptxas
-   reports.
+   reports; the host libraries built with g++ (csrc/wire_host.cpp among
+   them) and the png writer of the served path printed.
 2. Fixtures: the synthetic cities (tools/make_fixture.py --blocks 24 and
    48, then the port's geodata.importer.import_osm) under
    assets/fixtures/.
@@ -47,7 +48,15 @@ Phases (any failure exits non-zero; no phase is skipped):
    header total above the cap.  The fitting wires decode to the planar
    batch's pixels.  On those two batches, each wire's wrapper ms
    (`time_ms`) and device ms (`device_ms`) beside plain ms and its byte
-   bound; wire bytes against raw planar bytes; host decode ms per tile.
+   bound; wire bytes against raw planar bytes.  Every tile of the
+   learned v2 wire decodes to the batch's pixels through the numpy plain
+   version and through the served view (RleTileView over the host codec,
+   draw/png8.py); the view's PNG-8 of every tile of at most 256 colours
+   is colour type 3 and decodes to those pixels, and the other tiles
+   (palette overflows, served as RGB) are counted.  On the timed batches,
+   host ms per tile of the port's v2 and v1 decoders beside the numpy
+   ones, of its v2 decode to palette-index rows alone, of its PNG-8 writer beside png_writer's RGB PNG (zlib over
+   unfiltered rows), and PNG bytes per tile by container.
 4b. The labeled arena entry (render kernel, then the device label
    slab's blit) on the minicity z15 batch, its @2x batch and the bigcity
    z15 halves, with label layers from the port's fontTools-free labeler;
@@ -90,12 +99,21 @@ Phases (any failure exits non-zero; no phase is skipped):
    oracle (CpuDrawer), labeled tiles within 2/255 of the oracle plus the
    host composite; while serving, the server launched the render, emit
    and expand kernels, served at least one arena batch and one v2 wire
-   batch, and labeled at least one tile on the device.
+   batch, and labeled at least one tile on the device.  Its shutdown
+   line `png writer: ...; containers while serving: ...` is printed, its
+   writer must be the port's (`port (zlib)`), and its containers are
+   held to the responses (`check_containers`): no host label composite,
+   the PNGs of colour type 3 are its png8 tiles, and an RGB PNG of at
+   most 256 colours is a v1, raw or oracle tile; palette overflows are
+   counted.
 5b. The same server with precision = exact (labels = yes), the dense
    kernels' main path: >= 16 distinct tiles (z13-z17, @1x and @2x), the
    same bars, only dense batches, no launch of the render, emit or
    expand kernels, and every dense kernel launched while serving (the
-   server's `dense kernel launches` lines); its tiles/s printed.  (The
+   server's `dense kernel launches` lines); its tiles/s printed.  Its
+   containers (`check_exact_containers`): raw batches and host labels
+   only, so no PNG-8, and its rgb_raw and rgb_host_labels tiles sum to
+   the tiles its renderer drew.  (The
    fast servers of phases 5, 8 and 10 launch no dense kernel.)
 6. Warm served path in this process (PNG cache off): per-tile spans of
    warm minicity z15 and bigcity z15 batches with labels off, and of
@@ -106,7 +124,9 @@ Phases (any failure exits non-zero; no phase is skipped):
    byte-identical to one BatchRenderer on the 30 minicity and 97
    bigcity z15 tiles; (b) a multi-renderer TileService (labels on, PNG
    cache off) serves 52 minicity tiles (z13-z17, @2x) byte-identical to
-   a one-renderer service, cold and warm; (c) more than one renderer
+   a one-renderer service, cold and warm, or, where a v1 and a v2 wire
+   met, with the same pixels in another container, and each service's
+   PNGs held to its count of containers as in phase 5; (c) more than one renderer
    rendered, each used one holds arena rows and ran v1 batches until
    its first wire was read back (two: the cold group streams in
    sub-batches), then v2 batches, and the kernel launch counters, set to 0 just before,
@@ -160,7 +180,8 @@ Phases (any failure exits non-zero; no phase is skipped):
    printed on a line of its own.  Bars: exit 0, correct true (its
    served tiles held to their wires and to CpuDrawer among its checks),
    every metric a positive number, each kernel launched, and the card
-   it names the one phase 1 names.
+   it names the one phase 1 names; its png writer and
+   e2e_png_containers printed.
 7. None of jax, jaxlib, fontTools or the JAX package osm_renderer_tpu
    was loaded (the import guard refuses all four here and in the
    server).  Phase 7 runs last.
@@ -699,7 +720,7 @@ def phase_wire(device, planars, wire_rows, decode):
             words[pal] = total_words
             if pal == "learned":
                 host_v2 = v2.cpu().numpy()
-                _check_v2_decode(name, host_v2, rgb, ts)
+                n_png8, n_over = _check_v2_decode(name, host_v2, rgb, ts)
         # A one-colour batch has no literal under a palette that holds it.
         if words["pad"] != 3 * total_runs or not (words["half"] > total_runs or len(colors) == 1):
             raise AssertionError(f"{name}: palettes did not give both word forms: {words}")
@@ -711,6 +732,7 @@ def phase_wire(device, planars, wire_rows, decode):
             raise AssertionError(f"{name}: v2 cap {wsmall} did not overflow")
         raw = planar.numel()
         row = dict(name=name, T=T, ts=ts, runs=total_runs, words=words["learned"],
+                   png8_tiles=n_png8, overflow_tiles=n_over,
                    raw_bytes=raw, v1_bytes=4 * (2 + T + total_runs),
                    v2_bytes=4 * (3 + T + RL.PAL_CAP) + 2 * words["learned"])
         edges = ""
@@ -736,7 +758,8 @@ def phase_wire(device, planars, wire_rows, decode):
         log(f"  {name}: T={T} ts={ts} segment={RLE.segment_px(planar)} px runs={total_runs} "
             f"words(learned/half/pad)={words['learned']}/{words['half']}/{words['pad']} "
             f"bytes raw={raw} v1={row['v1_bytes']} v2={row['v2_bytes']}: bit-identical, "
-            f"overflow flagged{edges}{timing}")
+            f"overflow flagged{edges}{timing}; PNG-8 from the learned v2 wire for {n_png8} "
+            f"tiles, {n_over} palette overflows (> 256 colours, RGB)")
     return worst
 
 
@@ -790,21 +813,53 @@ def _edge_caps(name, planar, table, check):
     return {"rtot": f"{total_runs} and {total_runs - 1}", **caps}
 
 
-def _check_v2_decode(name, wire, rgb, ts):
+def _words_view(wire, ts):
+    """A v2 wire read back -> its RleTileView (the served path's view)."""
     import numpy as np
 
     from osm_renderer_tpu_torch.ops import rle_layout as RL
+    from osm_renderer_tpu_torch.parallel.renderer import RleTileView
 
     T = int(wire[0])
-    n_words = wire[3 : 3 + T]
+    offs = np.concatenate([[0], np.cumsum(wire[3 : 3 + T])]).astype(np.int64)
     table = wire[3 + T : 3 + T + RL.PAL_CAP]
-    packed32 = wire[3 + T + RL.PAL_CAP :]
-    off = 0
-    for t in range(T):
-        got = RL.decode_words_numpy(packed32, off, int(n_words[t]), table, ts, ts)
-        if not np.array_equal(got, rgb[t]):
+    return RleTileView(T, ts, words=(wire[3 + T + RL.PAL_CAP :], offs, table))
+
+
+def _check_v2_decode(name, wire, rgb, ts):
+    """Every tile of a v2 wire decodes to the planar batch's pixels through
+    the numpy plain version and through the served view (the host codec);
+    the view's PNG-8 is a colour type 3 PNG that decodes to those pixels
+    for every tile of at most 256 colours, and None for every other
+    (an overflow: the tile ships as RGB) -> (PNG-8 tiles, overflows)."""
+    import numpy as np
+    from PIL import Image
+
+    from osm_renderer_tpu_torch.ops import rle_layout as RL
+
+    view = _words_view(wire, ts)
+    packed32, offs, table = view.words
+    n_png8 = n_over = 0
+    for t in range(view.T):
+        got = RL.decode_words_numpy(packed32, int(offs[t]), int(offs[t + 1] - offs[t]), table,
+                                    ts, ts)
+        px = view.rgb(t)
+        if not (np.array_equal(got, rgb[t]) and np.array_equal(px, rgb[t])):
             raise AssertionError(f"{name}: v2 tile {t} does not decode to the planar batch")
-        off += int(n_words[t])
+        png = view.png8(t, 1)
+        fits = len(np.unique(px.reshape(-1, 3), axis=0)) <= 256
+        if png is None:
+            if fits:
+                raise AssertionError(f"{name}: tile {t} of at most 256 colours has no PNG-8")
+            n_over += 1
+            continue
+        img = Image.open(io.BytesIO(png))
+        if png[25] != 3 or img.mode != "P" or not np.array_equal(
+                np.asarray(img.convert("RGB")), px):
+            raise AssertionError(f"{name}: tile {t}'s PNG-8 (colour type {png[25]}) does not "
+                                 "decode to its view.rgb pixels")
+        n_png8 += 1
+    return n_png8, n_over
 
 
 def _time_wire(planar, rtot, wcap, tab):
@@ -829,46 +884,70 @@ def _time_wire(planar, rtot, wcap, tab):
 
 
 def _time_decode(v1, v2, rgb, ts):
-    """Host decode ms per tile of one batch: v2 through the serving
-    view (the native decoder where built, else the vectorised one), v2
-    through the per-word loop of png_writer's numpy fallback (a few
-    tiles), v1, and the raw planar transpose for scale."""
+    """Host ms per tile of one batch's decode and encode, and PNG bytes
+    per tile by container: v2 decoded to RGB through the port's decoder
+    (draw/png8.py), the vectorised numpy plain version and the per-word
+    loop of png_writer's numpy fallback (a few tiles), v2 decoded to
+    palette-index rows through the port's decoder (every tile, None for
+    the overflows), v1 through the port's decoder; the PNG-8 of every tile that fits a palette through
+    the port's writer, and every tile as an RGB PNG through png_writer
+    without libdeflate (zlib over unfiltered rows: the RGB PNG of the
+    served path on a host without libdeflate)."""
     import numpy as np
 
-    from osm_renderer_tpu_torch.draw import png_writer
+    from osm_renderer_tpu_torch.draw import png8, png_writer
     from osm_renderer_tpu_torch.ops import rle_layout as RL
-    from osm_renderer_tpu_torch.parallel.renderer import RleTileView
 
-    T = int(v2[0])
-    n_words = v2[3 : 3 + T]
-    offs = np.concatenate([[0], np.cumsum(n_words)])
-    table = v2[3 + T : 3 + T + RL.PAL_CAP]
-    packed32 = v2[3 + T + RL.PAL_CAP :]
-    view = RleTileView(T, ts, words=(packed32, offs, table))
-    view.rgb(0)  # warm
-    t0 = time.perf_counter()
-    for i in range(T):
-        view.rgb(i)
-    v2_ms = (time.perf_counter() - t0) * 1e3 / T
-    n_loop = min(T, 3)
+    view = _words_view(v2, ts)
+    packed32, offs, table = view.words
+    T = view.T
+
+    def per_tile(fn, tiles):
+        fn(tiles[0])  # warm
+        t0 = time.perf_counter()
+        out = [fn(i) for i in tiles]
+        return (time.perf_counter() - t0) * 1e3 / len(tiles), out
+
+    def words(i):
+        return packed32, int(offs[i]), int(offs[i + 1] - offs[i]), table
+
+    every = list(range(T))
+    port_ms, got = per_tile(lambda i: png8.decode_words(*words(i), ts, ts), every)
+    if not all(np.array_equal(g, r) for g, r in zip(got, rgb)):
+        raise AssertionError("the port's v2 decode differs from the planar batch")
+    numpy_ms, _ = per_tile(lambda i: RL.decode_words_numpy(*words(i), ts, ts), every)
+    idx_ms, _ = per_tile(lambda i: png8.decode_words_idx(*words(i), ts, ts), every)
     saved = png_writer._native, png_writer._native_failed
     png_writer._native, png_writer._native_failed = None, True
     try:
-        t0 = time.perf_counter()
-        for i in range(n_loop):
-            png_writer.rle_decode_words(packed32, int(offs[i]), int(n_words[i]), table, ts, ts)
-        loop_ms = (time.perf_counter() - t0) * 1e3 / n_loop
+        loop_ms, _ = per_tile(lambda i: png_writer.rle_decode_words(*words(i), ts, ts),
+                              every[:3])
     finally:
         png_writer._native, png_writer._native_failed = saved
-    n_runs = v1[2 : 2 + T]
-    roffs = np.concatenate([[0], np.cumsum(n_runs)])
-    runs_view = RleTileView(T, ts, runs=(v1[2 + T :], roffs))
-    t0 = time.perf_counter()
-    for i in range(T):
-        runs_view.rgb(i)
-    v1_ms = (time.perf_counter() - t0) * 1e3 / T
-    return dict(native=png_writer._get_native() is not None, v2_ms=v2_ms, v2_loop_ms=loop_ms,
-                v1_ms=v1_ms, words_per_tile=float(n_words.mean()))
+    roffs = np.concatenate([[0], np.cumsum(v1[2 : 2 + T])])
+    runs = v1[2 + T :]
+    v1_ms, _ = per_tile(lambda i: png8.decode_packed(runs[roffs[i] : roffs[i + 1]], ts, ts),
+                        every)
+    pngs = [png8.words_to_png_pal(*words(i), ts, ts, 1) for i in every]
+    fit = [i for i in every if pngs[i] is not None]
+    png8_ms, _ = (per_tile(lambda i: png8.words_to_png_pal(*words(i), ts, ts, 1), fit)
+                  if fit else (None, None))
+    saved = png_writer._native, png_writer._native_failed
+    png_writer._native, png_writer._native_failed = None, True
+    try:
+        zlib_ms, zlib_pngs = per_tile(lambda i: png_writer.rgb_to_png(rgb[i], 1), every)
+    finally:
+        png_writer._native, png_writer._native_failed = saved
+
+    def mean_len(items):
+        return sum(map(len, items)) / len(items) if items else None
+
+    return dict(writer=png8.WRITER, v2_ms=port_ms, v2_numpy_ms=numpy_ms, v2_idx_ms=idx_ms,
+                v2_loop_ms=loop_ms, v1_ms=v1_ms, words_per_tile=float(v2[3 : 3 + T].mean()),
+                png8_tiles=len(fit), png8_ms=png8_ms,
+                png8_bytes=mean_len([pngs[i] for i in fit]),
+                zlib_rgb_png_ms=zlib_ms, zlib_rgb_png_bytes=mean_len(zlib_pngs),
+                zlib_rgb_png_bytes_fit=mean_len([zlib_pngs[i] for i in fit]))
 
 
 def phase_labeled(device, styler, stylesheet_dir=STYLESHEET_DIR, prefix=""):
@@ -1432,8 +1511,12 @@ def phase_server(styler, rows_out, device="cuda", precision="fast", gpus=1,
         text = f.read()
     if proc.returncode != 0:
         raise AssertionError(f"server exited with {proc.returncode}:\n{text[-4000:]}")
-    launches, counts, dense = {}, {}, None
+    launches, counts, dense, writer = {}, {}, None, None
     for line in text.splitlines():
+        if line.startswith("png writer: "):
+            writer, _, rest = line[len("png writer: "):].partition("; containers while serving:")
+            counts["containers"] = {k: int(v) for k, v in
+                                    (kv.rsplit("=", 1) for kv in rest.split())}
         for kernel in ("render", "emit", "expand"):
             if line.startswith(f"{kernel} kernel launches while serving:"):
                 launches[kernel] = int(line.rsplit(":", 1)[1])
@@ -1513,11 +1596,22 @@ def phase_server(styler, rows_out, device="cuda", precision="fast", gpus=1,
     if n_unlabeled == 0 or n_labeled == 0:
         raise AssertionError(f"{n_unlabeled} unlabeled and {n_labeled} labeled tiles served: "
                              "both kinds are needed")
+    from osm_renderer_tpu_torch.draw.png8 import WRITER
+
+    if writer != WRITER:
+        raise AssertionError(f"{name}: png writer {writer!r}, want {WRITER!r}")
+    pngs = [png for _, png in got]
+    if exact:  # raw batches, labels composited on the host
+        containers = check_exact_containers(name, counts.get("containers"), pngs,
+                                            sum(by_renderer.values()))
+    else:
+        containers = check_containers(name, counts.get("containers"), pngs, len(reqs))
     rb = counts.get("readback bytes", {})
     log(f"  served {len(reqs)} distinct tiles ({precision}) in {serve_s:.2f} s: "
         "all HTTP 200 + PNG; "
         f"{n_unlabeled} unlabeled tiles max |diff| vs oracle = {worst_unlabeled}; "
         f"{n_labeled} labeled tiles max |diff| vs oracle + host composite = {worst_labeled}")
+    log(f"  png writer: {writer}; containers while serving: {containers}")
     log(f"  kernel launches while serving: {launches}; dense kernel launches while serving: "
         f"{dense} {by_kernel}; batches: {batches}; "
         f"readback bytes: wire {rb.get('wire')} for raw planar {rb.get('planar')}; "
@@ -1527,6 +1621,63 @@ def phase_server(styler, rows_out, device="cuda", precision="fast", gpus=1,
             f"requested at once, cold, labels on)")
     rows_out.update(launches=launches, dense_launches=by_kernel,
                     tiles_per_s=len(reqs) / serve_s)
+
+
+def check_exact_containers(name, containers, pngs, device_tiles):
+    """The exact server's containers: it reads its dense batches back raw
+    and composites labels on the host, so no PNG is colour type 3, no
+    tile is counted as png8, an overflow or a v1 tile, and its raw and
+    host-labeled tiles are the `device_tiles` its renderer drew.  -> the
+    counts, printed by the caller."""
+    if containers is None:
+        raise AssertionError(f"{name}: the server printed no containers line")
+    type3 = sum(p[25] == 3 for p in pngs)
+    other = {k: v for k, v in containers.items() if k not in ("rgb_raw", "rgb_host_labels") and v}
+    raw = containers.get("rgb_raw", 0) + containers.get("rgb_host_labels", 0)
+    if type3 or other or raw != device_tiles:
+        raise AssertionError(f"{name}: {type3} PNGs of colour type 3, containers {containers} "
+                             f"for {device_tiles} device tiles (want only rgb_raw and "
+                             "rgb_host_labels, summing to them)")
+    return dict(containers, device_tiles=device_tiles)
+
+
+def check_containers(name, containers, pngs, n_tiles, oracle=None):
+    """The served PNGs' containers against the server's count of its
+    device tiles by container (server/http.py CONTAINERS): no tile had its
+    labels composited on the host; the PNGs of colour type 3 (IHDR byte
+    25) are the png8 tiles, each decoding to a palette image; an RGB PNG
+    of at most 256 colours is a tile of a v1 or raw batch or an oracle
+    tile (`oracle` of them where the caller knows, else every tile not
+    counted as a device tile), and at least `rgb_overflow` RGB PNGs have
+    more than 256 colours.  -> the counts, printed by the caller."""
+    import numpy as np
+    from PIL import Image
+
+    if containers is None:
+        raise AssertionError(f"{name}: the server printed no containers line")
+    if containers.get("rgb_host_labels"):
+        raise AssertionError(f"{name}: {containers['rgb_host_labels']} tiles had their labels "
+                             "composited on the host")
+    type3 = [p for p in pngs if p[25] == 3]
+    if len(type3) != containers.get("png8", 0):
+        raise AssertionError(f"{name}: {len(type3)} PNGs of colour type 3, the server counted "
+                             f"{containers}")
+    if any(Image.open(io.BytesIO(p)).mode != "P" for p in type3):
+        raise AssertionError(f"{name}: a PNG-8 does not decode to a palette image")
+    few = many = 0
+    for p in pngs:
+        if p[25] != 3:
+            colours = len(np.unique(np.asarray(Image.open(io.BytesIO(p)).convert("RGB"))
+                                    .reshape(-1, 3), axis=0))
+            few, many = few + (colours <= 256), many + (colours > 256)
+    if oracle is None:
+        oracle = n_tiles - sum(containers.values())
+    allowed = oracle + containers.get("rgb_v1", 0) + containers.get("rgb_raw", 0)
+    if few > allowed or many < containers.get("rgb_overflow", 0):
+        raise AssertionError(f"{name}: {few} RGB PNGs of at most 256 colours (allowed "
+                             f"{allowed}: v1, raw and oracle tiles) and {many} of more "
+                             f"(overflows counted {containers.get('rgb_overflow', 0)})")
+    return dict(containers, oracle=oracle, rgb_fitting_a_palette=few)
 
 
 def warm_tile_ms(svc, n: int, reps: int = 5):
@@ -1614,6 +1765,7 @@ def phase_multi(styler, smi, device):
     import torch
     from PIL import Image
 
+    from osm_renderer_tpu_torch.draw import png8
     from osm_renderer_tpu_torch.tools.corpus import zoom_tiles
     from osm_renderer_tpu_torch.geodata.reader import GeodataReader
     from osm_renderer_tpu_torch.ops import render_cuda, rle_cuda
@@ -1666,11 +1818,11 @@ def phase_multi(styler, smi, device):
     launched = (render_cuda.RENDER_KERNEL_LAUNCHES, rle_cuda.EMIT_KERNEL_LAUNCHES,
                 rle_cuda.EXPAND_KERNEL_LAUNCHES)
     want = [one.render_tiles_device(reqs) for _ in range(2)]
-    # PNG colour type (IHDR byte 25): a host with the native encoder
-    # ships PNG-8 from v2 wires, and each renderer's first batch takes
-    # the v1 wire, so one renderer and several take v1 and v2 wires at
-    # other tiles.  Such pairs must decode to the same pixels; all others
-    # must be equal.
+    # PNG colour type (IHDR byte 25): every host ships PNG-8 from v2
+    # wires (through the port's host codec) and RGB from v1 wires, and each
+    # renderer's first batch takes the v1 wire, so one renderer and
+    # several take v1 and v2 wires at other tiles.  Such pairs must
+    # decode to the same pixels; all others must be equal.
     def pixels(png):
         return np.asarray(Image.open(io.BytesIO(png)).convert("RGB"))
 
@@ -1690,6 +1842,11 @@ def phase_multi(styler, smi, device):
     log(f"  (b) {len(reqs)} minicity tiles (z13-z17, {sum(s == 2 for _, s in reqs)} @2x), "
         f"labels on: PNGs byte-identical to one renderer's, cold and warm ({recoded} of "
         f"{2 * len(reqs)} in another PNG type, their pixels identical)")
+    for who, svc, pngs in (("one renderer", one, want), ("several", multi, got)):
+        counted = check_containers(f"(b) {who}", dict(svc.containers), pngs[0] + pngs[1],
+                                   2 * len(reqs), oracle=svc.tiles_served["oracle"])
+        log(f"  (b) {who}: png writer {png8.WRITER}; containers of the cold and warm "
+            f"passes {counted} ({smi})")
 
     used = [d for d in range(len(multi.batch_renderers)) if multi.tiles_by_renderer[d]]
     if len(used) < 2:
@@ -1997,6 +2154,8 @@ def phase_bench(device, smi, out):
     out.update(launches=launches, line=line)
     log(f"  the bench exited 0, correct, every metric positive, on {line['device']['name']} "
         f"at {line['device']['power_limit']}; kernel launches {launches}")
+    log(f"  the bench's png writer: {line['detail'].get('png_writer')}; e2e_png_containers: "
+        f"{line['detail'].get('e2e_png_containers')}")
 
 
 def main() -> int:
@@ -2042,6 +2201,11 @@ def main() -> int:
     from osm_renderer_tpu_torch.utils.torch_setup import build_native_host_libs
 
     build_native_host_libs()
+    from osm_renderer_tpu_torch.draw import png8
+
+    png8.library()
+    log(f"  png writer: {png8.WRITER} (host libraries built with g++ from "
+        "native/ and osm_renderer_tpu_torch/csrc/wire_host.cpp)")
 
     log("phase 2: fixtures")
     build_fixtures()
@@ -2071,10 +2235,16 @@ def main() -> int:
     decode: dict = {}
     worst = phase_wire(device, planars + synthetic_planars(device), wire_rows, decode)
     for name, d in decode.items():
-        log(f"  host decode {name}: native decoder {'built' if d['native'] else 'absent'}; "
-            f"v2 {d['v2_ms']:.3f} ms/tile through the serving view, "
-            f"{d['v2_loop_ms']:.3f} ms/tile through the per-word loop; "
-            f"v1 {d['v1_ms']:.3f} ms/tile; {d['words_per_tile']:.0f} words/tile")
+        png8_part = (f"PNG-8 {d['png8_ms']:.4f} ms/tile and {d['png8_bytes']:.0f} B/tile on "
+                     f"its {d['png8_tiles']} tiles that fit a palette (RGB through png_writer "
+                     f"{d['zlib_rgb_png_bytes_fit']:.0f} B/tile on those)"
+                     if d["png8_tiles"] else "no tile fits a palette")
+        log(f"  host decode and encode {name} (png writer: {d['writer']}; {smi}): v2 "
+            f"{d['v2_ms']:.4f} ms/tile through the port's decoder, {d['v2_numpy_ms']:.4f} "
+            f"through the numpy plain version, {d['v2_loop_ms']:.3f} through the per-word "
+            f"loop; v2 to index rows {d['v2_idx_ms']:.4f} ms/tile; v1 {d['v1_ms']:.4f} ms/tile; {d['words_per_tile']:.0f} words/tile; "
+            f"{png8_part}; RGB PNG {d['zlib_rgb_png_ms']:.4f} ms/tile and "
+            f"{d['zlib_rgb_png_bytes']:.0f} B/tile through png_writer (zlib, unfiltered)")
     del planars
 
     log("phase 4b: labeled arena entry (render kernel, then the label slab's blit) "

@@ -33,7 +33,9 @@ cover the same addresses), and the production stylesheet
 its own.  Before each timed loop, its untimed passes alternate until
 the renderer's adaptive wire caps stop changing; the timed runs of the
 end-to-end and production loops then go in an order shuffled by
-`--seed`, the only random input.
+`--seed`, the only random input.  `detail.png_writer` names the host
+codec the end-to-end loops encoded through (`draw/png8.py`), and
+`detail.e2e_png_containers` the PNG containers each kind served.
 
 `correct` is true when every check holds: each PNG of the last timed
 end-to-end and production passes decodes to its wire's pixels, and
@@ -312,9 +314,9 @@ class E2E:
 
     def _encode(self, kind, te, res, compacts, device_labeled, kept) -> None:
         """The server's encode (`server/http.py`): PNG-8 straight from a
-        v2 wire where the native encoder is built and the tile needs no
-        host labels, else RGB, host-composited when its labels were not
-        blended on the device."""
+        v2 wire, through the port's host codec, where the tile needs no
+        host labels and its colours fit a PNG palette, else RGB,
+        host-composited when its labels were not blended on the device."""
         from osm_renderer_tpu_torch.draw.png_writer import rgb_to_png
 
         view = self.renderer.fetch_tile_view(res)
@@ -376,6 +378,7 @@ def measure(b: Bench, corpus) -> Dict[str, object]:
     the JSON line's fields other than `correct` and `device`."""
     from osm_renderer_tpu_torch.draw.drawer import CpuDrawer
     from osm_renderer_tpu_torch.draw.labels.labeler import Labeler
+    from osm_renderer_tpu_torch.draw.png8 import WRITER as PNG_WRITER
     from osm_renderer_tpu_torch.draw.png_writer import rgb_to_png
     from osm_renderer_tpu_torch.geodata.reader import GeodataReader
     from osm_renderer_tpu_torch.mapcss.parser import parse_file
@@ -493,6 +496,7 @@ def measure(b: Bench, corpus) -> Dict[str, object]:
     for k in E2E_KINDS:
         b.record(f"e2e_tiles_per_sec.{k}", got[k])
     detail["e2e_png_containers"] = {k: dict(c) for k, c in e2e.containers.items()}
+    detail["png_writer"] = PNG_WRITER
     detail["e2e_raw_batches_while_timed"] = srv.batch_counts["raw"] - raw0
     check_served(b, "e2e", e2e, E2E_KINDS, oracle,
                  Labeler(icon_base_path=STYLESHEET_DIR, label_cache_tiles=0))

@@ -33,7 +33,10 @@ kernel) and, summed over its renderers, the batches it served by path:
 arena or plain upload or dense (`precision = exact`), and v1 wire, v2
 wire or raw planar readback, beside the tiles whose labels were blended
 on the device (`labeled_tiles`), then the tiles each renderer rendered
-(`tiles by renderer while serving: 0@cuda:0=N ...`).  Both backends run the
+(`tiles by renderer while serving: 0@cuda:0=N ...`), then the host codec
+and the PNG containers of the device tiles served
+(`png writer: port (zlib); containers while serving: png8=N
+rgb_overflow=N rgb_v1=N rgb_raw=N rgb_host_labels=N`).  Both backends run the
 port's own server and labeler and need neither jax nor fontTools.
 """
 
@@ -126,7 +129,8 @@ def main(argv=None) -> int:
         return 1
 
     from osm_renderer_tpu_torch.ops import dense_cuda, render_cuda, rle_cuda
-    from osm_renderer_tpu_torch.server.http import run_server
+    from osm_renderer_tpu_torch.draw import png8
+    from osm_renderer_tpu_torch.server.http import CONTAINERS, run_server
 
     if backend == "device":
         if config.getboolean("render", "warmup", fallback=True):
@@ -140,6 +144,7 @@ def main(argv=None) -> int:
             for counts in (r.batch_counts, r.readback_bytes):
                 counts.update(dict.fromkeys(counts, 0))
         service.tiles_by_renderer.clear()
+        service.containers.clear()
         devices = ", ".join(str(r.device) for r in service.batch_renderers)
         print(f"Serving tiles on http://{address} (backend={backend}, "
               f"{len(service.batch_renderers)} renderer(s) on {devices})", flush=True)
@@ -163,6 +168,8 @@ def main(argv=None) -> int:
         print("tiles by renderer while serving: " + " ".join(
             f"{i}@{r.device}={service.tiles_by_renderer[i]}"
             for i, r in enumerate(service.batch_renderers)))
+        print(f"png writer: {png8.WRITER}; containers while serving: " + " ".join(
+            f"{k}={service.containers[k]}" for k in CONTAINERS))
         sys.stdout.flush()
     return 0
 

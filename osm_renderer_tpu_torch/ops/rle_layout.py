@@ -21,10 +21,9 @@ The formats (the device half is `ops.rle_cuda`):
 A total above the cap means the batch overflowed the wire and the
 caller reads the raw planar batch instead.
 
-`decode_words_numpy` is not a copy: it is the vectorised v2 decode the
-serving path uses on hosts without the native decoder
-(`draw/png_writer.py`), whose numpy fallback loops over every word in
-Python.
+`decode_words_numpy` is not a copy: it is a vectorised plain version of
+the v2 decode, which the tests hold the host codecs of `draw/png8.py`
+to; the served path decodes through those codecs and never reaches it.
 """
 
 from __future__ import annotations

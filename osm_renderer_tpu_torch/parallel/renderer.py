@@ -35,7 +35,7 @@ import numpy as np
 import torch
 
 from osm_renderer_tpu_torch.core.tile import Tile
-from osm_renderer_tpu_torch.draw import png_writer
+from osm_renderer_tpu_torch.draw.png8 import decode_packed, decode_words, words_to_png_pal
 from osm_renderer_tpu_torch.draw import primitives as prim_mod
 from osm_renderer_tpu_torch.draw.primitives import FAST_COORD_BOUND, FillPrim, assemble_tile_prims
 from osm_renderer_tpu_torch.mapcss.styler import Styler
@@ -628,36 +628,39 @@ class RleTileView:
 
     Exactly one of `rgb` (raw fallback batch), `words` (v2: packed32,
     word offsets, palette table) or `runs` (v1: packed runs, run offsets)
-    is set.  `rgb(i)` decodes tile i; `png8(i, level)` emits a palette
-    PNG straight from the v2 words (None when the tile needs the RGB
-    path).  Decoding uses the native decoders of `draw/png_writer.py`
-    where they are built; a v2 tile decodes through the vectorised
-    `rle_layout.decode_words_numpy` where they are not."""
+    is set; `wire_fmt(i)` names which ("raw", "v2" or "v1").  `rgb(i)`
+    decodes tile i; `png8(i, level)` emits a palette PNG straight from the
+    v2 words (None when the tile needs the RGB path: a v1 or raw batch, or
+    more than 256 colours in the tile).  Both go through the port's host
+    codec (`draw/png8.py`)."""
 
     def __init__(self, T: int, ts: int, rgb=None, words=None, runs=None):
         self.T = T
         self.ts = ts
         self._rgb = rgb
-        self._words = words
+        self.words = words
         self._runs = runs
+
+    def wire_fmt(self, i: int) -> str:
+        """The wire tile i came on (every tile of a view comes on one)."""
+        return "raw" if self._rgb is not None else "v2" if self.words is not None else "v1"
 
     def rgb(self, i: int) -> np.ndarray:
         if self._rgb is not None:
             return self._rgb[i]
         ts = self.ts
-        if self._words is not None:
-            packed32, offs, table = self._words
-            decode = (png_writer.rle_decode_words if png_writer._get_native() is not None
-                      else rle_layout.decode_words_numpy)
-            return decode(packed32, int(offs[i]), int(offs[i + 1] - offs[i]), table, ts, ts)
+        if self.words is not None:
+            packed32, offs, table = self.words
+            return decode_words(packed32, int(offs[i]), int(offs[i + 1] - offs[i]), table,
+                                ts, ts)
         packed, offs = self._runs
-        return png_writer.rle_decode_packed(packed[int(offs[i]) : int(offs[i + 1])], ts, ts)
+        return decode_packed(packed[int(offs[i]) : int(offs[i + 1])], ts, ts)
 
     def png8(self, i: int, level: int) -> Optional[bytes]:
-        if self._words is None:
+        if self.words is None:
             return None
-        packed32, offs, table = self._words
-        return png_writer.words_to_png_pal(
+        packed32, offs, table = self.words
+        return words_to_png_pal(
             packed32, int(offs[i]), int(offs[i + 1] - offs[i]), table, self.ts, self.ts, level,
         )
 

@@ -17,9 +17,14 @@ the chunk arena (unless `osm_ids` is set), is run-length encoded on the device a
 crosses to the host as one wire array.  On the arena path, labeled
 tiles have their committed label layers blended on the device (the
 renderer's label slab).  Unlabeled and device-labeled tiles ship as
-PNG-8 straight from the v2 wire where the native encoder is built; the
-others decode to RGB, and labeled tiles the device did not label (plain
-upload batches under `osm_ids`) get their labels composited on the host.
+PNG-8 straight from the v2 wire, through the port's host codec
+(`draw/png8.py`: its own wire decoder, then zlib); a service whose codec
+cannot be built or loaded does not start.  The others decode to RGB
+through the same codec and ship as RGB PNGs: tiles
+of a v1 or raw batch, tiles of more than 256 colours, and labeled tiles
+the device did not label (plain upload batches under `osm_ids`), which
+get their labels composited on the host.  `containers` counts the
+device tiles served each way.
 
 `precision = "exact"` serves as the original does: a dense renderer
 (`BatchRenderer(backend="dense", precision="exact")`, int64/f64) on the
@@ -44,6 +49,7 @@ import torch
 from osm_renderer_tpu_torch import perfstats
 from osm_renderer_tpu_torch.core.tile import MAX_ZOOM, Tile
 from osm_renderer_tpu_torch.draw.drawer import CpuDrawer
+from osm_renderer_tpu_torch.draw import png8
 from osm_renderer_tpu_torch.draw.png_writer import rgb_to_png
 from osm_renderer_tpu_torch.geodata.reader import GeodataReader
 from osm_renderer_tpu_torch.mapcss.styler import Styler
@@ -54,6 +60,13 @@ from osm_renderer_tpu_torch.parallel.renderer import (
     wait_executed,
 )
 from osm_renderer_tpu_torch.utils.torch_setup import build_native_host_libs, resolve_device
+
+
+# The PNG containers of device tiles: "png8", or RGB for the reason
+# ("rgb_overflow": more than 256 colours in the tile; "rgb_v1",
+# "rgb_raw": the batch's wire; "rgb_host_labels": labels composited on
+# the host).
+CONTAINERS = ("png8", "rgb_overflow", "rgb_v1", "rgb_raw", "rgb_host_labels")
 
 
 def extract_tile_from_path(path: str) -> Optional[Tuple[Tile, int]]:
@@ -115,6 +128,10 @@ class _ShardedTileView:
     def png8(self, i: int, level: int):
         k, j = self._remap[i]
         return self._views[k].png8(j, level)
+
+    def wire_fmt(self, i: int) -> str:
+        k, j = self._remap[i]
+        return self._views[k].wire_fmt(j)
 
 
 class TileService:
@@ -182,9 +199,14 @@ class TileService:
         # ("oracle"); chunk-dense batches halved on MAX_BATCH_CHUNKS.
         self.tiles_by_renderer: Counter = Counter()
         self.tiles_served: Counter = Counter()
+        # Device tiles by PNG container (CONTAINERS).
+        self.containers: Counter = Counter()
         self.halvings = 0
         if backend == "cpu":
             return
+        # The host codec every device-path tile is decoded and encoded
+        # through; raises when it cannot be built or loaded.
+        png8.library()
         self.device = resolve_device(device)
         devices = _serving_devices(self.device, gpus)
         if precision == "exact":
@@ -473,19 +495,25 @@ class TileService:
                     self.tiles_served["device"] += 1
                     compact = sub_compacts[gi] if sub_compacts is not None else None
                     png = None
-                    if compact is None or gi in device_labeled:
+                    host_labels = compact is not None and gi not in device_labeled
+                    if not host_labels:
                         # Unlabeled, or labeled on the device: PNG-8
                         # straight from the v2 wire when the tile's
-                        # colours fit the wire's palette.
+                        # colours fit a PNG palette.
                         png = view.png8(gi, self.png_level)
                     if png is None:
+                        fmt = view.wire_fmt(gi)
+                        self.containers["rgb_host_labels" if host_labels else
+                                        "rgb_overflow" if fmt == "v2" else f"rgb_{fmt}"] += 1
                         img = view.rgb(gi)
-                        if compact is not None and gi not in device_labeled:
+                        if host_labels:
                             # Host composite: batches without the label
                             # slab (the plain upload under osm_ids).
                             img = self.labeler.composite_labels(
                                 img, entities, t, float(scale), self.styler)
                         png = rgb_to_png(img, self.png_level)
+                    else:
+                        self.containers["png8"] += 1
                     out[i] = png
             self._png_cache_put(t, scale, out[i])
             with self._perf_lock:

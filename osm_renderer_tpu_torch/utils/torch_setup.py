@@ -19,6 +19,7 @@ _REPO_ROOT = os.path.dirname(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 )
 _NATIVE_DIR = os.path.join(_REPO_ROOT, "native")
+_CSRC_DIR = os.path.join(_REPO_ROOT, "osm_renderer_tpu_torch", "csrc")
 _native_lock = threading.Lock()
 
 
@@ -53,21 +54,24 @@ def build_dir() -> str:
     return path
 
 
-# The C++ sources of `native/`, built for the port: name -> (source, link
-# flags).  The compile flags are `native/Makefile`'s.
+# The host C++ libraries the port builds: name -> (source directory,
+# source, link flags).  `native/`'s are the JAX package's sources; the
+# port's own host code is in its `csrc/`.  The compile flags are
+# `native/Makefile`'s.
 _HOST_LIBS = {
-    "oracle": ("oracle.cpp", ()),
-    "assembler": ("assembler.cpp", ()),
-    "pngenc": ("pngenc.cpp", ("-ldeflate",)),
+    "oracle": (_NATIVE_DIR, "oracle.cpp", ()),
+    "assembler": (_NATIVE_DIR, "assembler.cpp", ()),
+    "pngenc": (_NATIVE_DIR, "pngenc.cpp", ("-ldeflate",)),
+    "wirehost": (_CSRC_DIR, "wire_host.cpp", ()),
 }
 HOST_CXXFLAGS = ["-O2", "-std=c++17", "-fPIC", "-Wall", "-Wextra", "-ffp-contract=off", "-shared"]
 _host_paths: dict = {}
 
 
 def host_lib_path(name: str) -> str:
-    """Path of the port's build of `native/<source>` for `name` ("oracle",
-    "assembler" or "pngenc"), compiled on first use.  Raises when the
-    build fails (pngenc needs libdeflate).
+    """Path of the port's build of the host library `name` ("oracle",
+    "assembler", "pngenc" or "wirehost"), compiled on first use.
+    Raises when the build fails (pngenc needs libdeflate).
 
     The library goes to the kernel build directory under a name hashed
     from its source and flags, never to `native/`, whose libraries the
@@ -82,8 +86,8 @@ def host_lib_path(name: str) -> str:
     import fcntl
     import hashlib
 
-    source, libs = _HOST_LIBS[name]
-    src_path = os.path.join(_NATIVE_DIR, source)
+    src_dir, source, libs = _HOST_LIBS[name]
+    src_path = os.path.join(src_dir, source)
     flags = HOST_CXXFLAGS + list(libs)
     with open(src_path, "rb") as f:
         digest = hashlib.sha256(f.read() + " ".join(flags).encode()).hexdigest()[:16]
@@ -107,11 +111,12 @@ def host_lib_path(name: str) -> str:
 
 
 def build_native_host_libs() -> None:
-    """Build the C++ oracle and chunk assembler of `native/` for the port
+    """Build the C++ oracle and chunk assembler of `native/` and the
+    port's wire decoder (`csrc/wire_host.cpp`) for the port
     (`host_lib_path`).  The libdeflate PNG encoder is built apart, by the
-    PNG writer, which falls back to zlib without it.  Raises when a build
-    fails."""
-    for name in ("oracle", "assembler"):
+    copied PNG writer, which falls back to zlib without it.  Raises when a
+    build fails."""
+    for name in ("oracle", "assembler", "wirehost"):
         host_lib_path(name)
 
 

@@ -495,9 +495,11 @@ def test_port_forced_small_cap_falls_back_to_raw(mini_bin, styler):
 
 
 def test_port_server_without_native_decoder(mini_bin, styler, monkeypatch):
-    """Where the native PNG library is missing, v2 tiles decode through the
-    vectorised decoder (never png_writer's per-word loop) and ship as RGB
-    PNGs with the pixels of a server that has the library."""
+    """Where the native PNG library is missing, the server still serves
+    through the port's host codec (draw/png8.py): v2 tiles never reach
+    png_writer's per-word loop, warm device tiles ship as PNG-8 (colour
+    type 3), and every tile has the pixels of a server that has the
+    library."""
     from osm_renderer_tpu_torch.draw import png_writer
 
     tiles = [(t, s) for t in _zoom_tiles() for s in (1, 2)]
@@ -515,6 +517,8 @@ def test_port_server_without_native_decoder(mini_bin, styler, monkeypatch):
     for _ in range(2):
         got = bare.render_tiles_device(tiles)
     assert bare.batch_renderer.batch_counts["v2"] >= 2
+    assert bare.containers["png8"] > 0
+    assert sum(png[25] == 3 for png in got) == sum(png[25] == 3 for png in want) > 0
     for (t, s), p_g, p_w in zip(tiles, got, want):
         np.testing.assert_array_equal(_rgb(p_g), _rgb(p_w), err_msg=f"{t}@{s}x")
 

@@ -296,6 +296,7 @@ def test_profile_serving_cli_on_the_cpu(mini_bin, capsys, arena):
         assert lines[6].startswith("arena packed upload: ")
     else:
         assert lines[6].startswith("concat ") and lines[7].startswith("batch bytes: ")
+    assert lines[-2].startswith("encode: png writer ") and " plain path: v2 decode " in lines[-2]
     assert lines[-1].startswith("wire d2h ")
 
 
