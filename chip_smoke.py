@@ -57,16 +57,25 @@ Phases (any failure exits non-zero; no phase is skipped):
    host ms per tile of the port's v2 and v1 decoders beside the numpy
    ones, of its v2 decode to palette-index rows alone, of its PNG-8 writer beside png_writer's RGB PNG (zlib over
    unfiltered rows), and PNG bytes per tile by container.
-4b. The labeled arena entry (render kernel, then the device label
-   slab's blit) on the minicity z15 batch, its @2x batch and the bigcity
-   z15 halves, with label layers from the port's fontTools-free labeler;
-   every batch carries labeled tiles.  Bars: (a) byte-identical to
-   blit_planar run on the CPU over the unlabeled arena entry's output
-   with a CPU copy of the slab plane; (b) every tile within 1/255 of the
-   host composite (composite_labels) over that unlabeled output; (c)
-   alpha = 1 label cores and every pixel outside a layer's bbox
-   byte-identical to it.  Labeled-entry ms beside unlabeled-entry ms
-   and the blit's own ms, slab rows and bytes.
+4b. The labeled arena entry (one render-kernel launch whose u8
+   finalize also blends the device label slab's rows) on the minicity
+   z15 batch, its @2x batch, two of its labeled tiles at @4x (ts 1024)
+   and the bigcity z15 halves, with label layers from the port's
+   fontTools-free labeler; every batch carries labeled tiles.  Bars: (a)
+   byte-identical to blit_planar run on the CPU over the unlabeled arena
+   entry's output with a CPU copy of the slab plane; (b) every tile
+   within 1/255 of the host composite (composite_labels) over that
+   unlabeled output; (c) alpha = 1 label cores and every pixel outside a
+   layer's bbox byte-identical to it; (d) byte-identical to the
+   unlabeled entry followed by expand_ltriples and blit_planar on the
+   card; (e) the unlabeled entry's torch operators (views aside), none
+   after the render launch (a TorchDispatchMode records them), with
+   each entry's device operations a call by torch.profiler printed
+   beside (a trace can drop records, so they are not a bar).  Labeled-entry ms beside
+   unlabeled-entry ms (CUDA events, and device ms with the enqueue
+   hidden), the blend's plain version's ms on the card, the epilogue's
+   byte bound (labeled rows x 2 x ts x 4 bytes over 3.35 TB/s), slab
+   rows and bytes.
 4c. The dense renderer of `precision = exact` and its fast twin: its
    three kernels (csrc/dense.cu: dense_stroke_alpha, dense_fill_alpha,
    dense_blend_finalize, via ops/dense_cuda.py) against the plain
@@ -193,8 +202,9 @@ kernel's in the exact precision; "max_abs_err" covers phases 3, 4 and
 10, the bench's render batches among them, and phase 4c for the dense
 kernels; "launches" are phase 10 (b)'s, the bench's, and for the dense
 kernels phase 5b's, the exact server's;
-the sweep's and the mapsme server's are printed in phase 10), the last
-line
+the sweep's and the mapsme server's are printed in phase 10;
+render_planar's entry also has a "note": on the labeled arena entry its
+finalize blends the label slab), the last line
 {"ok": true, "device": {...}}.  Without a CUDA device, or outside a
 checkout of the repository, it exits non-zero and prints no result.
 """
@@ -231,6 +241,13 @@ KERNELS = {
                  "osm_renderer_tpu/ops/rle_pallas.py:56"),
     "rle_expand": ("osm_renderer_tpu_torch/csrc/rle.cu",
                    "osm_renderer_tpu/ops/rle_pallas.py:312"),
+}
+
+# What a kernel does beyond the TPU kernel it replaces, printed beside it.
+KERNEL_NOTES = {
+    "render_planar": "on the labeled arena entry its u8 finalize also blends the label "
+                     "slab's rows (label_slab.blit_planar's work, which the JAX package ran "
+                     "in XLA after its kernel)",
 }
 
 # The dense kernels of `precision = exact` (phase 4c, served in phase 5b):
@@ -428,9 +445,9 @@ def compare_arena(name, render_arena, plain_out, rows):
         f"arena_ms={arena_ms:.4f}")
 
 
-def scene_prims(icon: bool):
+def scene_prims(icon: bool, out_dir: str = OUT_DIR):
     """The synthetic one-tile scene's primitives -> (prims, the icon
-    cache of its fill pattern, or None)."""
+    cache of its fill pattern, written into `out_dir`, or None)."""
     import numpy as np
     from PIL import Image
 
@@ -444,15 +461,15 @@ def scene_prims(icon: bool):
         rng = np.random.default_rng(7)
         px = rng.integers(0, 256, size=(10, 12, 4), dtype=np.uint8)
         px[..., 3] = rng.integers(60, 256, size=(10, 12), dtype=np.uint8)
-        os.makedirs(OUT_DIR, exist_ok=True)
-        Image.fromarray(px, "RGBA").save(os.path.join(OUT_DIR, "pattern.png"))
+        os.makedirs(out_dir, exist_ok=True)
+        Image.fromarray(px, "RGBA").save(os.path.join(out_dir, "pattern.png"))
         tri = np.array([[120, 20, 240, 200], [240, 200, 20, 230], [20, 230, 120, 20]], np.int64)
         return [
             P.FillPrim(kind="fill", color=None, opacity=1.0, edges=tri, fill_image="pattern.png"),
             P.make_stroke_prim(np.array([[0, 100, 255, 140]], np.int64), 3.0, (255, 255, 255),
                                1.0, None, LINE_CAP_BUTT, True),
             P.FillPrim(kind="fill", color=None, opacity=1.0, edges=box, fill_image="pattern.png"),
-        ], IconCache(OUT_DIR)
+        ], IconCache(out_dir)
     far = 5 * P.FAST_COORD_BOUND
     tri = np.array([[-far, -100, 200, 90], [200, 90, 120, far], [120, far, -far, -100]],
                    np.int64)
@@ -464,7 +481,7 @@ def scene_prims(icon: bool):
     ], None
 
 
-def scene_batch(device, icon: bool):
+def scene_batch(device, icon: bool, out_dir: str = OUT_DIR):
     """A synthetic one-tile scene for the chunk kinds the cities lack:
     an oversize-coordinate fill and round-capped dashed stroke (host
     layers, KIND_LAYER) between two plain fills, or (icon=True) two
@@ -479,7 +496,7 @@ def scene_batch(device, icon: bool):
     from osm_renderer_tpu_torch.parallel.arena import ChunkArena
     from osm_renderer_tpu_torch.parallel.renderer import PreparedBatch
 
-    prims, icon_cache = scene_prims(icon)
+    prims, icon_cache = scene_prims(icon, out_dir)
     patterns = P.PatternTable(icon_cache, 256)
     profiles = P.ProfileTable()
     stream = P.stream_tile_packed(prims, profiles, CL.CH, patterns)
@@ -951,19 +968,33 @@ def _time_decode(v1, v2, rgb, ts):
 
 
 def phase_labeled(device, styler, stylesheet_dir=STYLESHEET_DIR, prefix=""):
-    """The labeled arena entry (render kernel, then the label slab's blit)
-    on the minicity z15 batch, its @2x batch and the bigcity z15 halves,
-    with label layers from the port's labeler.  Bars: (a) byte-identical
-    to blit_planar run on the CPU over the unlabeled arena entry's output
-    with a CPU copy of the slab plane; (b) every tile within 1/255 of
-    composite_labels over that unlabeled output; (c) alpha = 1 cores and
-    pixels outside each layer's bbox byte-identical to it."""
+    """The labeled arena entry (one render-kernel launch whose u8
+    finalize also blends the label slab's rows) on the minicity z15
+    batch, its @2x batch, two of its labeled tiles at @4x and the
+    bigcity z15 halves, with label layers from the port's labeler.
+    Bars: (a) byte-identical to blit_planar run on the CPU over the
+    unlabeled arena entry's output with a CPU copy of the slab plane;
+    (b) every tile within 1/255 of composite_labels over that unlabeled
+    output; (c) alpha = 1 cores and pixels outside each layer's bbox
+    byte-identical to it; (d) byte-identical to the unlabeled entry
+    followed by expand_ltriples and blit_planar on the card; (e) the
+    unlabeled entry's torch operators (views aside), none dispatched
+    after the render launch: nothing runs after it.  Prints each
+    entry's device operations a call (torch.profiler, not a bar: a
+    trace can drop records), the labeled and unlabeled entries' ms
+    (CUDA events around the calls, and device ms with the host's
+    enqueue hidden, the least of four readings taken in turn), the
+    kernel's device ms alone with and without the labels
+    (the same way), the blend's plain version's ms on the card
+    (`blit_ms`), and the epilogue's byte bound: the labeled
+    rows' slab words (rows x 2 x ts x 4 bytes) over 3.35 TB/s."""
     import numpy as np
     import torch
 
     from osm_renderer_tpu_torch.tools.corpus import split_prepare, zoom_tiles
     from osm_renderer_tpu_torch.geodata.reader import GeodataReader
     from osm_renderer_tpu_torch.draw.labels.labeler import Labeler
+    from osm_renderer_tpu_torch.ops import render_cuda as RC
     from osm_renderer_tpu_torch.parallel import label_slab as LS
     from osm_renderer_tpu_torch.parallel.renderer import BatchRenderer
 
@@ -974,7 +1005,12 @@ def phase_labeled(device, styler, stylesheet_dir=STYLESHEET_DIR, prefix=""):
                           device=str(device), arena=True)
         z15 = [(reader.get_entities_in_tile_with_neighbors(t), t) for t in zoom_tiles(reader, 15)]
         if city == "minicity":
-            batches = [(f"{prefix}{city}_z15", z15, 1), (f"{prefix}{city}_z15_2x", z15[:12], 2)]
+            # Two tiles with a label layer at @4x (ts 1024), the server's
+            # largest scale.
+            at4x = [(e, t) for e, t in z15
+                    if labeler.ensure_layer(e, t, 4.0, styler, 1024) is not None][:2]
+            batches = [(f"{prefix}{city}_z15", z15, 1), (f"{prefix}{city}_z15_2x", z15[:12], 2),
+                       (f"{prefix}{city}_z15_4x", at4x, 4)]
         else:
             mid = len(z15) // 2
             batches = [(f"{prefix}{city}_z15_half0", z15[:mid], 1),
@@ -999,13 +1035,23 @@ def phase_labeled(device, styler, stylesheet_dir=STYLESHEET_DIR, prefix=""):
                 got = r.render_prepared_planar(pl)
                 torch.cuda.synchronize()
                 slab = pl.label_ctx[0]
-                lrow = LS.expand_ltriples(torch.from_numpy(pl.label_rows), ts)
+                tri = torch.from_numpy(pl.label_rows)
+                lrow = LS.expand_ltriples(tri, ts)
                 cpu_blit = LS.blit_planar(base.cpu(), slab.plane.cpu(), lrow)
                 got_h, base_h = got.cpu(), base.cpu().numpy()
                 if not torch.equal(got_h, cpu_blit):
                     n = int((got_h != cpu_blit).sum().item())
                     raise AssertionError(f"{bname}: labeled entry differs from the CPU blit "
                                          f"in {n} bytes")
+                tri_dev = tri.to(device)
+
+                def card_blit():
+                    return LS.blit_planar(base, slab.plane, LS.expand_ltriples(tri_dev, ts))
+
+                if not torch.equal(got, card_blit()):
+                    n = int((got != card_blit()).sum().item())
+                    raise AssertionError(f"{bname}: labeled entry differs from the blit on the "
+                                         f"card in {n} bytes")
                 got_h = got_h.numpy()
                 worst = 0
                 for k, ((ents, t), c) in enumerate(zip(te, cs)):
@@ -1025,16 +1071,62 @@ def phase_labeled(device, styler, stylesheet_dir=STYLESHEET_DIR, prefix=""):
                     if not np.array_equal(g[exact], want[exact]):
                         raise AssertionError(f"{bname} tile {k}: an alpha = 1 core or a pixel "
                                              "outside the label bbox differs from the composite")
+                torch_l, launches_l = _dispatched_ops(lambda: r.render_prepared_planar(pl))
+                torch_u, launches_u = _dispatched_ops(lambda: r.render_prepared_planar(pu))
+                if (launches_l, launches_u) != (1, 1) or torch_l != torch_u or any(
+                        n for _, n in torch_l):
+                    raise AssertionError(f"{bname}: the labeled entry dispatched {torch_l} "
+                                         f"around {launches_l} render launches, the unlabeled "
+                                         f"{torch_u} around {launches_u}")
+                kinds_l = list(map(_op_label, _profiled_call_ops(
+                    lambda: r.render_prepared_planar(pl))))
+                kinds_u = list(map(_op_label, _profiled_call_ops(
+                    lambda: r.render_prepared_planar(pu))))
                 labeled_ms = time_ms(lambda: r.render_prepared_planar(pl))
                 plain_ms = time_ms(lambda: r.render_prepared_planar(pu))
-                lrow_dev = lrow.to(device)
-                blit_ms = time_ms(lambda: LS.blit_planar(base, slab.plane, lrow_dev))
+                labeled_dev, plain_dev = _alternating_device_ms(
+                    lambda: r.render_prepared_planar(pl), lambda: r.render_prepared_planar(pu))
+                # The kernel alone, with and without the labels, on the
+                # labeled batch's one upload.
+                arena, prof, tot, pat, _ = pl.arena_ctx
+                kb, krows, ktri = RC.arena_batch(pl.arena_packed, arena, prof, tot, pat,
+                                                 pl.chunk, pl.label_rows)
+                kern_l, kern_u = _alternating_device_ms(
+                    lambda: RC.render_batch_planar(kb, pl.canvas_rgb, ts, krows, ktri, slab.plane),
+                    lambda: RC.render_batch_planar(kb, pl.canvas_rgb, ts, krows))
+                blit_ms = time_ms(card_blit)
+                label_rows = int(pl.label_rows[:, 2].sum())
+                epi_bytes = label_rows * 2 * ts * 4
+                epi_ms = epi_bytes / HBM_BYTES_PER_S * 1e3
                 rows = sum(n for _, n, _ in slab._offsets.values())
                 log(f"  {bname}: T={pl.chunk} ts={ts} labeled tiles={len(pl.device_labeled)} "
                     f"(a) CPU blit byte-identical, (b) max |diff| vs host composite={worst}, "
-                    f"(c) cores and outside bbox exact; labeled_ms={labeled_ms:.4f} "
-                    f"unlabeled_ms={plain_ms:.4f} blit_ms={blit_ms:.4f}; slab rows={rows} "
-                    f"of cap {slab.cap} ({slab.plane.numel() * slab.plane.element_size()} bytes)")
+                    f"(c) cores and outside bbox exact, (d) card blit byte-identical, (e) torch "
+                    f"ops labeled={len(torch_l)} unlabeled={len(torch_u)} "
+                    f"({' | '.join(n for n, _ in torch_l)}), none after the render launch; "
+                    f"device ops a call (profiler) labeled={len(kinds_l)} unlabeled="
+                    f"{len(kinds_u)} ({' | '.join(kinds_l)}); "
+                    f"labeled_ms={labeled_ms:.4f} unlabeled_ms={plain_ms:.4f} "
+                    f"(labeled - unlabeled {labeled_ms - plain_ms:.4f}); device ms labeled="
+                    f"{labeled_dev:.4f} unlabeled={plain_dev:.4f} (labeled - unlabeled "
+                    f"{labeled_dev - plain_dev:.4f}); the kernel alone, device ms labeled="
+                    f"{kern_l:.4f} unlabeled={kern_u:.4f} (epilogue {kern_l - kern_u:.4f}); "
+                    f"blit_ms={blit_ms:.4f} (plain version on the card); epilogue bound "
+                    f"{epi_ms:.6f} ms ({label_rows} labeled rows, "
+                    f"{epi_bytes} B of slab words); slab rows={rows} of cap {slab.cap} "
+                    f"({slab.plane.numel() * slab.plane.element_size()} bytes)")
+
+
+def _alternating_device_ms(fa, fb, rounds: int = 4, reps: int = 10):
+    """-> (ms of fa, ms of fb): each the least of `rounds` device_ms
+    readings (`reps` calls, the enqueue hidden), taken a, b, a, b, ..."""
+    from osm_renderer_tpu_torch.tools.kdevice import device_ms
+
+    a, b = [], []
+    for _ in range(rounds):
+        a.append(device_ms(fa, reps))
+        b.append(device_ms(fb, reps))
+    return min(a), min(b)
 
 
 def _dense_scene(device, scene: str, precision: str):
@@ -1111,27 +1203,100 @@ def _event_ms(fn, reps: int = 3) -> float:
     return ev0.elapsed_time(ev1) / reps
 
 
-def _device_launches(fn, reps: int = 1) -> int:
-    """Device operations (kernels, copies, memsets) one call of fn() ran,
-    counted by torch.profiler over `reps` calls; -1 when no trace held a
-    whole multiple of `reps`."""
+def _traces(fn, reps: int, n: int = 3) -> list:
+    """`n` torch.profiler traces of `reps` calls of fn() each -> each
+    trace's device operations (kernels, copies, memsets) by name, in the
+    order they started."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    # A trace can miss launches after other device work (as
-    # tools/kdevice.py found): one thrown-away trace, then up to three.
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+    # A trace can miss operations after other device work (as
+    # tools/kdevice.py found; phase 4b's traces lost a render entry's
+    # first operations, whole calls, or one render kernel mid-trace):
+    # one thrown-away trace first.
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=acts):
         fn()
         torch.cuda.synchronize()
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    out = []
+    for _ in range(n):
+        with profile(activities=acts) as prof:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        n = sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
-        if n and n % reps == 0:
-            return n // reps
-    return -1
+        ev = sorted((e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA),
+                    key=lambda e: e.time_range.start)
+        out.append([e.name for e in ev])
+    return out
+
+
+def _device_ops(fn, reps: int = 1) -> list:
+    """Names of the device operations `reps` calls of fn() ran, from the
+    fullest of `_traces` that holds a whole multiple of `reps`; [] when
+    none does."""
+    best = []
+    for ev in _traces(fn, reps):
+        if len(ev) % reps == 0 and len(ev) > len(best):
+            best = ev
+    return best
+
+
+def _profiled_call_ops(fn, calls: int = 3) -> list:
+    """The device operations of one call of fn(), a render entry, by
+    torch.profiler: the most common run of operations that follows one
+    render kernel and ends at the next, over four traces of `calls`
+    calls.  A trace can drop records, so this is printed, not held to a
+    bar ([] when no trace held two render kernels)."""
+    from collections import Counter
+
+    seen = Counter()
+    for ev in _traces(fn, calls, n=4):
+        ends = [i for i, name in enumerate(ev) if "render_kernel" in name]
+        for a, b in zip(ends, ends[1:]):
+            seen[tuple(ev[a + 1:b + 1])] += 1
+    return list(seen.most_common(1)[0][0]) if seen else []
+
+
+def _dispatched_ops(fn) -> tuple:
+    """-> (the torch operators fn() dispatched that are not views, in
+    order, each with the render-kernel launches made before it; the
+    launches fn() made).  Every device operation of a render entry is
+    one of these or the launch, on one stream, so this is the order the
+    card runs them in."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from osm_renderer_tpu_torch.ops import render_cuda as RC
+
+    before = RC.RENDER_KERNEL_LAUNCHES
+    ops = []
+
+    class Record(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if not func.is_view:
+                ops.append((str(func), RC.RENDER_KERNEL_LAUNCHES - before))
+            return func(*args, **(kwargs or {}))
+
+    with Record():
+        fn()
+    return ops, RC.RENDER_KERNEL_LAUNCHES - before
+
+
+def _op_label(name: str) -> str:
+    """A device operation's name, short: the port's kernel, a copy or
+    memset as the profiler names it, or the kind of a PyTorch kernel."""
+    if name.startswith(("Memcpy", "Memset")):
+        return name
+    for key in ("render_kernel", "gather", "copy", "index"):
+        if key in name:
+            return key
+    return name[:40]
+
+
+def _device_launches(fn, reps: int = 1) -> int:
+    """Device operations one call of fn() ran (`_device_ops` over `reps`
+    calls); -1 when no trace held a whole multiple of `reps`."""
+    ops = _device_ops(fn, reps)
+    return len(ops) // reps if ops else -1
 
 
 def _peak_bytes(fn) -> int:
@@ -2247,9 +2412,11 @@ def main() -> int:
             f"{d['zlib_rgb_png_bytes']:.0f} B/tile through png_writer (zlib, unfiltered)")
     del planars
 
-    log("phase 4b: labeled arena entry (render kernel, then the label slab's blit) "
-        "(bars: (a) byte-identical to the CPU blit over the unlabeled entry, (b) <= 1/255 "
-        "of the host composite, (c) alpha = 1 cores and outside the label bbox exact)")
+    log("phase 4b: labeled arena entry (one render-kernel launch, the label blend in its "
+        "finalize) (bars: (a) byte-identical to the CPU blit over the unlabeled entry, (b) "
+        "<= 1/255 of the host composite, (c) alpha = 1 cores and outside the label bbox exact, "
+        "(d) byte-identical to the blit on the card, (e) the unlabeled entry's torch "
+        f"operators, none after the render launch) ({smi})")
     phase_labeled(device, styler)
 
     log("phase 4c: the dense renderer's kernels (csrc/dense.cu) on the card "
@@ -2345,7 +2512,7 @@ def main() -> int:
          "ms": measured[name][1], "plain_ms": measured[name][2],
          "bound_ms": measured[name][3], "bound_by": measured[name][4],
          # No single PyTorch call computes any of these functions.
-         "library_ms": None}
+         "library_ms": None, **({"note": KERNEL_NOTES[name]} if name in KERNEL_NOTES else {})}
         for name, (source, replaces) in {**KERNELS, **DENSE_KERNELS}.items()
     ]}
     print(json.dumps(kernels), flush=True)

@@ -46,6 +46,14 @@
 // * Arena rows through the index.  `rows`, when given, maps a batch
 //   chunk to its row of the device chunk arena for geom, trav, sprof,
 //   aux and items, so the arena entry gathers nothing.
+// * Labels in the finalize.  On the labeled arena entry the u8 finalize
+//   also blends the device label slab's rows over the pixel it has just
+//   written (parallel/label_slab.py's blit_planar, which the JAX package
+//   ran in XLA after its kernel): a tile's (off, y0, n) triple maps its
+//   rows [y0, y0 + n) to slab rows off + (y - y0), and each thread reads
+//   the two i32 words of its own column.  The math is blit_planar's
+//   int32 math, so the bytes are its bytes; rows outside the range keep
+//   the render.  No other kernel runs after the render.
 //
 // The TPU evaluated per-pixel predicates through bf16 matmuls (fill
 // coverage (U @ W) > 0.5, tent lanes split into an integer and a bf16
@@ -70,6 +78,7 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+#include <string.h>
 
 namespace {
 
@@ -120,6 +129,8 @@ struct Params {
   const float* patterns;      // (NPat, 4, ts, ts)
   const float* canvas;        // (3,)
   const int32_t* tile_range;  // (T, 2) [begin, end) chunk indices
+  const int32_t* label_tri;   // (T, 3) (off, y0, n) slab rows of each tile, or null
+  const int32_t* label_plane; // (cap, 2, ts) label slab (label_slab.py), or null
   uint8_t* out;               // (T, 4, ts, ts)
   int items_stride;
   int ts;
@@ -441,6 +452,10 @@ __device__ float stroke_item_alpha(const Seg& s, int mode, bool dashed, const Pr
 // The block's walk over its tile's chunks
 // ---------------------------------------------------------------------------
 
+// The asynchronous copies.  Outside nvcc's device pass (a host build of
+// this file) a copy is a plain 16-byte copy, done when it is issued, and
+// the waits have nothing to wait for.
+#ifdef __CUDA_ARCH__
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem) : "memory");
@@ -455,6 +470,14 @@ __device__ __forceinline__ void cp_async_wait_prev() {
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
+#else
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  memcpy(smem, gmem, 16);
+}
+__device__ __forceinline__ void cp_async_commit() {}
+__device__ __forceinline__ void cp_async_wait_prev() {}
+__device__ __forceinline__ void cp_async_wait_all() {}
+#endif
 
 // Where a block is: tile, 32-row band, 128-column half.
 struct Place {
@@ -825,9 +848,29 @@ render_kernel(const Params p) {
   }
   cp_async_wait_all();
 
+  // The slab words of the thread's rows, all loads issued before the
+  // first store (an out byte may alias them, so the compiler would not
+  // hoist a later row's loads above an earlier row's stores): a colour
+  // word and A = plane1 + 1, the identity (0, 65536) outside the tile's
+  // label rows [y0, y0 + n).
+  const bool labeled = p.label_tri != nullptr;
+  unsigned lc[WROWS], la[WROWS];
+  if (labeled) {
+    const int loff = p.label_tri[3 * tile];
+    const int ly0 = p.label_tri[3 * tile + 1];
+    const int ln = p.label_tri[3 * tile + 2];
+#pragma unroll
+    for (int k = 0; k < WROWS; ++k) {
+      const int dy = px.wr0 + k - ly0;
+      const bool in = dy >= 0 && dy < ln;
+      const int32_t* lr = p.label_plane + (size_t)(in ? loff + dy : 0) * 2 * ts + px.x;
+      lc[k] = in ? (unsigned)lr[0] : 0u;
+      la[k] = in ? (unsigned)lr[ts] + 1u : 65536u;
+    }
+  }
   const size_t plane = (size_t)ts * ts;
   uint8_t* o = p.out + (size_t)tile * 4 * plane + (size_t)px.wr0 * ts + px.x;
-#pragma unroll 4
+#pragma unroll
   for (int k = 0; k < WROWS; ++k) {
     const float* ak = acc + k * NTHREADS;
     const float acc_a = ak[3 * WROWS * NTHREADS];
@@ -837,7 +880,15 @@ render_kernel(const Params p) {
     for (int c = 0; c < 3; ++c) {
       float v = 255.0f * ak[c * WROWS * NTHREADS] * mul;
       v = isnan(v) ? 0.0f : fminf(fmaxf(v, 0.0f), 255.0f);
-      ok[c * plane] = (uint8_t)(int)truncf(v);
+      int out = (uint8_t)(int)truncf(v);
+      if (labeled) {
+        // blit_planar: (c * 65536 + A * base) >> 16, clamped to 255, in
+        // wrapping int32 as torch computes it (at most 33.4M on slab
+        // data); the identity words give base back.
+        const unsigned cc = (lc[k] >> (8 * c)) & 255u;
+        out = min((int)(cc * 65536u + la[k] * (unsigned)out) >> 16, 255);
+      }
+      ok[c * plane] = (uint8_t)out;
     }
     ok[3 * plane] = 255;
   }
@@ -850,12 +901,19 @@ extern "C" int osmr_render_planar(
     const int32_t* items, int items_stride, const int32_t* rows, const int32_t* isec,
     const int32_t* chunk_i, const float* chunk_f, const float* profiles,
     const float* prof_total, const float* patterns, const float* canvas,
-    const int32_t* tile_range, uint8_t* out, int n_tiles, int ts, void* stream) {
+    const int32_t* tile_range, const int32_t* label_tri, const int32_t* label_plane,
+    int label_cap, uint8_t* out, int n_tiles, int ts, void* stream) {
+  // A labeled launch needs both label pointers and a slab of at least
+  // its identity row; the caller has checked every triple against the
+  // tile and the slab.
+  if ((label_tri == nullptr) != (label_plane == nullptr) || (label_tri && label_cap < 1)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const cudaError_t err = cudaFuncSetAttribute(
       render_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
   if (err != cudaSuccess) return static_cast<int>(err);
   Params p{geom, trav, sprof, aux, items, rows, isec, chunk_i, chunk_f, profiles, prof_total,
-           patterns, canvas, tile_range, out, items_stride, ts};
+           patterns, canvas, tile_range, label_tri, label_plane, out, items_stride, ts};
   const dim3 grid(ts / HALF, ts / RB, n_tiles);
   render_kernel<<<grid, NTHREADS, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(p);
   return static_cast<int>(cudaGetLastError());

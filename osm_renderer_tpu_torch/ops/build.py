@@ -94,12 +94,17 @@ def load_library(source: str, ptxas_verbose: bool = False) -> ctypes.CDLL:
 
 
 def render_library(ptxas_verbose: bool = False) -> ctypes.CDLL:
-    lib = load_library("render.cu", ptxas_verbose)
+    return bind_render(load_library("render.cu", ptxas_verbose))
+
+
+def bind_render(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare csrc/render.cu's entry points on a loaded build of it."""
     fn = lib.osmr_render_planar
     fn.restype = ctypes.c_int
     fn.argtypes = (
         [ctypes.c_void_p] * 5 + [ctypes.c_int]           # geom..items, items_stride
         + [ctypes.c_void_p] * 9                          # rows, isec..tile_range
+        + [ctypes.c_void_p] * 2 + [ctypes.c_int]         # label_tri, label_plane, its rows
         + [ctypes.c_void_p, ctypes.c_int, ctypes.c_int]  # out, n_tiles, ts
         + [ctypes.c_void_p]                              # stream
     )

@@ -41,7 +41,7 @@ import numpy as np
 import torch
 
 from osm_renderer_tpu_torch.ops import render_dense as RD
-from osm_renderer_tpu_torch.ops.render_cuda import BatchLayoutError
+from osm_renderer_tpu_torch.ops.render_cuda import BatchLayoutError, on_cuda
 
 KERNELS = ("dense_stroke_alpha", "dense_fill_alpha", "dense_blend_finalize")
 # Kernel launches made by the wrappers (CUDA tensors only), by kernel.
@@ -303,21 +303,12 @@ def kernel_attributes(precision: str) -> dict:
     return {k: dict(zip(keys, out[4 * i:4 * i + 4])) for i, k in enumerate(KERNELS)}
 
 
-def _on_cuda(t: torch.Tensor, what: str) -> bool:
-    """True for a CUDA tensor, False for a CPU one; raises otherwise."""
-    if t.device.type == "cpu":
-        return False
-    if t.device.type != "cuda":
-        raise BatchLayoutError(f"{what}: unsupported device {t.device}")
-    return True
-
-
 def stroke_alpha(batch: RD.TileBatch, pack: DensePack, pending: torch.Tensor,
                  chain: bool) -> None:
     """Phase 1 for the stroke segments: each segment's alpha over its
     window, max-reduced into `pending` in place."""
     _check(batch, pack, pending)
-    if not _on_cuda(pending, "stroke_alpha"):
+    if not on_cuda(pending, "stroke_alpha"):
         stroke_alpha_plain(batch, pack, pending, chain)
     elif pack.n_strokes:
         _launch("dense_stroke_alpha", batch, pack, pending, chain=chain)
@@ -327,7 +318,7 @@ def fill_alpha(batch: RD.TileBatch, pack: DensePack, pending: torch.Tensor) -> N
     """Phase 1 for the fills: each fill's alpha over its window,
     max-reduced into `pending` in place."""
     _check(batch, pack, pending)
-    if not _on_cuda(pending, "fill_alpha"):
+    if not on_cuda(pending, "fill_alpha"):
         fill_alpha_plain(batch, pack, pending)
     elif pack.n_fill_units:
         blocks = FILL_BLOCKS if pack.e_max <= FILL_PAIRS else FILL_BLOCKS_SCRATCH
@@ -352,7 +343,7 @@ def blend_finalize(batch: RD.TileBatch, canvas: torch.Tensor, pack: DensePack,
     """Phase 2: every group's src-over in paint order, then the u8
     finalize -> (T, ts, ts, 3) uint8."""
     _check(batch, pack, pending, canvas)
-    if not _on_cuda(pending, "blend_finalize"):
+    if not on_cuda(pending, "blend_finalize"):
         return blend_finalize_plain(batch, canvas, pack, pending)
     out = torch.empty((pack.n_tiles, pack.ts, pack.ts, 3), dtype=torch.uint8,
                       device=pending.device)

@@ -11,12 +11,16 @@ kernel itself is `csrc/render.cu`; its design notes are there.
   tables) into the port's tensors on a device.
 * `render_batch_planar` checks its inputs and launches the kernel for
   CUDA tensors (raising if the launch fails); for CPU tensors it runs
-  the twin.  It never falls back from a CUDA tensor.
+  the twin.  It never falls back from a CUDA tensor.  Given a label
+  slab's triples and plane, the kernel's u8 finalize also blends the
+  slab's rows over its output; the twin's output goes through
+  `parallel.label_slab`'s `expand_ltriples` and `blit_planar`, the
+  blend's plain version.
 * `render_arena_planar` builds the batch from one packed upload and a
   row gather from the device chunk arena (`parallel.arena`), then
   renders it through `render_batch_planar`;
-  `render_arena_planar_labeled` also blends the device label slab
-  (`parallel.label_slab`) over the output.
+  `render_arena_planar_labeled` also hands it the device label slab
+  (`parallel.label_slab`), so a labeled batch is one kernel launch.
 * `render_batch_planar_reference` is the twin: the TPU kernel's f32 /
   int32 formulas, vectorized per chunk over the pixel windows the TPU
   kernel evaluated.  The tests hold it to Pallas interpret mode and to
@@ -127,7 +131,9 @@ def from_numpy_batch(
     return batch, up(np.asarray(canvas_rgb, np.float32).reshape(3), np.float32)
 
 
-def _check(b: CudaBatch, canvas: torch.Tensor, ts: int, rows: Optional[torch.Tensor]) -> None:
+def _check(b: CudaBatch, canvas: torch.Tensor, ts: int, rows: Optional[torch.Tensor],
+           label_tri: Optional[torch.Tensor] = None,
+           label_plane: Optional[torch.Tensor] = None) -> None:
     dev = b.geom.device
     C = b.chunk_i.shape[0]
     R = C if rows is None else b.geom.shape[0]
@@ -174,43 +180,84 @@ def _check(b: CudaBatch, canvas: torch.Tensor, ts: int, rows: Optional[torch.Ten
         raise BatchLayoutError("canvas must be a (3,) float32 tensor on the batch's device")
     if ts % 128 or not 128 <= ts <= 1024:
         raise BatchLayoutError(f"tile size {ts} must be a multiple of 128 in [128, 1024]")
+    if (label_tri is None) != (label_plane is None):
+        raise BatchLayoutError("label_tri and label_plane go together")
+    if label_tri is not None:
+        T = b.tile_range.shape[0]
+        if (label_tri.device != dev or label_tri.dtype != torch.int32
+                or tuple(label_tri.shape) != (T, 3) or not label_tri.is_contiguous()):
+            raise BatchLayoutError(f"label_tri must be a contiguous ({T}, 3) int32 tensor on {dev}")
+        if (label_plane.device != dev or label_plane.dtype != torch.int32
+                or label_plane.dim() != 3 or tuple(label_plane.shape[1:]) != (2, ts)
+                or label_plane.shape[0] < 1 or not label_plane.is_contiguous()):
+            raise BatchLayoutError(f"label_plane must be a contiguous (cap, 2, {ts}) int32 "
+                                   f"tensor on {dev}")
 
 
 def render_batch_planar(
     b: CudaBatch, canvas: torch.Tensor, ts: int, rows: Optional[torch.Tensor] = None,
+    label_tri: Optional[torch.Tensor] = None, label_plane: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """-> (T, 4, ts, ts) uint8 planar (channel 3 is 255 padding).
 
     `rows`, when given, is the (C,) i32 row of each chunk in `b.geom`,
     `trav`, `sprof`, `aux` and `items` (the chunk arena's tensors); the
-    caller guarantees every row is in range.  CUDA tensors launch the
-    kernel on the current stream (no synchronisation), which reads the
-    rows through the index; CPU tensors gather them with `index_select`
-    and run the plain twin."""
+    caller guarantees every row is in range.  `label_tri` and
+    `label_plane`, when given, are a label slab's (T, 3) i32 (off, y0, n)
+    triples and its (cap, 2, ts) i32 plane: the output's rows y0 .. y0 +
+    n - 1 of each tile take the blend of slab rows off .. off + n - 1
+    (`label_slab.blit_planar`); the caller guarantees every triple lies
+    in the tile and the plane.  CUDA tensors launch the kernel on the
+    current stream (no synchronisation), which reads the rows through
+    the index and blends the labels in its finalize; CPU tensors gather
+    the rows with `index_select`, run the plain twin and then the
+    blend's plain version."""
+    _check(b, canvas, ts, rows, label_tri, label_plane)
+    if on_cuda(b.geom, "render_batch_planar"):
+        return _launch(b, canvas, ts, rows, label_tri, label_plane)
+    if rows is not None:
+        idx = rows.long()
+        b = b._replace(**{name: getattr(b, name).index_select(0, idx)
+                          for name in ("geom", "trav", "sprof", "aux", "items")})
+    out = render_batch_planar_reference(b, canvas, ts)
+    if label_tri is not None:
+        out = LS.blit_planar(out, label_plane, LS.expand_ltriples(label_tri, ts))
+    return out
+
+
+def on_cuda(t: torch.Tensor, what: str) -> bool:
+    """True for a CUDA tensor, False for a CPU one; raises otherwise."""
+    if t.device.type == "cpu":
+        return False
+    if t.device.type != "cuda":
+        raise BatchLayoutError(f"{what}: unsupported device {t.device}")
+    return True
+
+
+def _launch(b: CudaBatch, canvas: torch.Tensor, ts: int, rows: Optional[torch.Tensor],
+            label_tri: Optional[torch.Tensor], label_plane: Optional[torch.Tensor]
+            ) -> torch.Tensor:
+    """One launch of csrc/render.cu on the current stream of the batch's
+    device -> the (T, 4, ts, ts) u8 output; raises on a failed build or
+    launch.  Nothing runs on the device after the launch."""
     global RENDER_KERNEL_LAUNCHES
-    _check(b, canvas, ts, rows)
-    dev = b.geom.device
-    if dev.type == "cpu":
-        if rows is not None:
-            idx = rows.long()
-            b = b._replace(**{name: getattr(b, name).index_select(0, idx)
-                              for name in ("geom", "trav", "sprof", "aux", "items")})
-        return render_batch_planar_reference(b, canvas, ts)
-    if dev.type != "cuda":
-        raise BatchLayoutError(f"render_batch_planar: unsupported device {dev}")
     from osm_renderer_tpu_torch.ops.build import render_library
 
     lib = render_library()
+    dev = b.geom.device
     T = b.tile_range.shape[0]
     out = torch.empty((T, 4, ts, ts), dtype=torch.uint8, device=dev)
+    ptr = lambda t: t.data_ptr() if t is not None else None
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         rc = lib.osmr_render_planar(
             b.geom.data_ptr(), b.trav.data_ptr(), b.sprof.data_ptr(), b.aux.data_ptr(),
-            b.items.data_ptr(), b.items.shape[1], rows.data_ptr() if rows is not None else None,
-            b.isec.data_ptr(), b.chunk_i.data_ptr(), b.chunk_f.data_ptr(), b.profiles.data_ptr(),
+            b.items.data_ptr(), b.items.shape[1], ptr(rows), b.isec.data_ptr(),
+            b.chunk_i.data_ptr(), b.chunk_f.data_ptr(), b.profiles.data_ptr(),
             b.prof_total.data_ptr(), b.patterns.data_ptr(), canvas.data_ptr(),
-            b.tile_range.data_ptr(), out.data_ptr(), T, ts, stream,
+            b.tile_range.data_ptr(), ptr(label_tri), ptr(label_plane),
+            label_plane.shape[0] if label_plane is not None else 0, out.data_ptr(), T, ts,
+            stream,
         )
     if rc != 0:
         raise RuntimeError(f"render kernel launch failed with cudaError_t {rc}")
@@ -232,8 +279,8 @@ def render_arena_planar(
     tensors are already resident.  The render kernel reads the arena's
     rows through lane 15, the batch's row index, where the JAX package
     gathered them in XLA outside its kernel."""
-    return _render_arena(packed, np.zeros(0, np.int32), arena, prof_rows, prof_total,
-                         patterns, canvas, ts, n_tiles)[0]
+    batch, rows, _ = arena_batch(packed, arena, prof_rows, prof_total, patterns, n_tiles)
+    return render_batch_planar(batch, canvas, ts, rows=rows)
 
 
 def render_arena_planar_labeled(
@@ -241,36 +288,36 @@ def render_arena_planar_labeled(
     prof_total: torch.Tensor, patterns: torch.Tensor, canvas: torch.Tensor, ts: int,
     n_tiles: int, label_plane: torch.Tensor,
 ) -> torch.Tensor:
-    """`render_arena_planar`, then the device label blit.
+    """`render_arena_planar` with the device label slab blended in.
 
     Counterpart of `render_pallas._arena_render_label_jit`.  `label_rows`
     is the (T, 3) i32 (off, y0, n) slab-row map of
     `LabelSlab.ltriples`; it rides appended to the packed buffer in the
-    batch's one upload, expands to the (T, ts) row map on the device and
-    blends the slab plane's rows over the kernel's output
-    (`parallel.label_slab.blit_planar`)."""
+    batch's one upload, and the render kernel's finalize blends the slab
+    plane's rows over its output (on the CPU: the twin, then
+    `parallel.label_slab.expand_ltriples` and `blit_planar`)."""
     tri = np.ascontiguousarray(label_rows, dtype=np.int32)
     if tri.shape != (n_tiles, 3):
         raise BatchLayoutError(f"label_rows has shape {tri.shape}, want ({n_tiles}, 3)")
-    if (label_plane.device != arena.geom.device or label_plane.dtype != torch.int32
-            or label_plane.dim() != 3 or tuple(label_plane.shape[1:]) != (2, ts)):
-        raise BatchLayoutError("label_plane must be a (cap, 2, ts) int32 tensor on the arena's device")
-    off, y0, n = tri[:, 0], tri[:, 1], tri[:, 2]
-    if (np.any(n < 0) or np.any(y0 < 0) or np.any(y0 + n > ts) or np.any(off < 0)
-            or np.any(off + n > label_plane.shape[0])):
+    off, y0, n = tri.T
+    # off, y0 and n >= 0, y0 + n <= ts, off + n <= the plane's rows.
+    if n_tiles and (tri.min() < 0 or (y0 + n).max() > ts
+                    or (off + n).max() > label_plane.shape[0]):
         raise BatchLayoutError("label_rows out of range of the tile or the slab plane")
-    out, up_tri = _render_arena(packed, tri.reshape(-1), arena, prof_rows, prof_total,
-                                patterns, canvas, ts, n_tiles)
-    lrow = LS.expand_ltriples(up_tri.view(n_tiles, 3), ts)
-    return LS.blit_planar(out, label_plane, lrow)
+    batch, rows, up_tri = arena_batch(packed, arena, prof_rows, prof_total, patterns, n_tiles,
+                                      tri)
+    return render_batch_planar(batch, canvas, ts, rows=rows, label_tri=up_tri,
+                               label_plane=label_plane)
 
 
-def _render_arena(
-    packed: np.ndarray, tail: np.ndarray, arena, prof_rows, prof_total, patterns, canvas,
-    ts: int, n_tiles: int,
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The arena entry with an i32 `tail` riding in the same upload
-    -> (planar output, the tail on the device)."""
+def arena_batch(
+    packed: np.ndarray, arena, prof_rows, prof_total, patterns, n_tiles: int,
+    label_tri: Optional[np.ndarray] = None,
+) -> Tuple[CudaBatch, torch.Tensor, Optional[torch.Tensor]]:
+    """The arena entry's batch from its one upload -> (CudaBatch over the
+    arena's tensors, the (C,) row index, the (T, 3) label triples on the
+    device or None).  A labeled batch's `label_tri` rides in the same
+    upload, behind the tiles' chunk ranges."""
     packed = np.ascontiguousarray(packed, dtype=np.int32)
     if packed.ndim != 2 or packed.shape[0] != L.N_SMALL:
         raise BatchLayoutError(f"packed has shape {packed.shape}, want ({L.N_SMALL}, C)")
@@ -287,7 +334,8 @@ def _render_arena(
         axis=1,
     ).astype(np.int32)
     N, C = packed.shape
-    up = torch.from_numpy(np.concatenate([packed.reshape(-1), tile_range.reshape(-1), tail]))
+    tail = [] if label_tri is None else [label_tri.reshape(-1)]
+    up = torch.from_numpy(np.concatenate([packed.reshape(-1), tile_range.reshape(-1), *tail]))
     up = up.to(arena.geom.device)
     pk = up[: N * C].view(N, C)
     batch = CudaBatch(
@@ -300,7 +348,8 @@ def _render_arena(
         profiles=prof_rows, prof_total=prof_total, patterns=patterns,
         tile_range=up[N * C : N * C + 2 * n_tiles].view(n_tiles, 2),
     )
-    return render_batch_planar(batch, canvas, ts, rows=pk[15]), up[N * C + 2 * n_tiles :]
+    up_tri = None if label_tri is None else up[N * C + 2 * n_tiles :].view(n_tiles, 3)
+    return batch, pk[15], up_tri
 
 
 # ---------------------------------------------------------------------------

@@ -4,7 +4,10 @@ Counterpart of `osm_renderer_tpu.parallel.label_slab`, which imports jax
 at module level.  The host places each tile's labels once (the port's
 `draw.labels.labeler`); the committed layer is then kept on the device,
 and warm labeled batches blend it over the render's planar u8 output
-(`blit_planar`) instead of compositing on the host.
+instead of compositing on the host: on the card inside the render
+kernel's finalize (`ops.render_cuda.render_arena_planar_labeled`), on
+the CPU through `expand_ltriples` and `blit_planar`, the blend's plain
+version.
 
 Storage: one (cap, 2, ts) i32 plane per tile size.  A label layer's
 non-zero-alpha bbox rows occupy consecutive slab rows at full tile
@@ -25,9 +28,8 @@ LRU eviction under row pressure (the current batch's keys pinned),
 plane is a torch tensor on the renderer's device, updated in place:
 `insert` makes one host-to-device upload of the bucketed payload and
 writes it with `index_copy_`, and growing allocates the larger plane and
-copies the old rows over.  The blit and the row map are plain torch ops,
-as the original ran them in XLA outside its kernel.  Not thread-safe;
-callers serialize (BatchRenderer holds its cache lock).
+copies the old rows over.  Not thread-safe; callers serialize
+(BatchRenderer holds its cache lock).
 """
 
 from __future__ import annotations
@@ -76,7 +78,8 @@ def blit_planar(planar: torch.Tensor, plane: torch.Tensor, lrow: torch.Tensor) -
     lrow:   (T, ts) i32 slab row per output row (0 = identity)
 
     Integer math only: (c * 65536 + A * base) >> 16, at most 33.4M, so
-    int32 holds it."""
+    int32 holds it.  The plain version of the blend in csrc/render.cu's
+    finalize, which computes the same int32 math."""
     patch = plane[lrow.long()]               # (T, y, 2, x) i32
     p0 = patch[:, :, 0, :]                   # (T, y, x)
     A = patch[:, :, 1, :] + 1                # [1, 65536]

@@ -2,9 +2,10 @@
 
 g++ compiles the kernel source behind tests/cuda_host/cuda_runtime.h, a
 header that stands in for the few CUDA pieces it uses (qualifiers,
-thread indices, a warp's 32 lanes as coroutines meeting at its ballots,
-barriers and shuffles, atomics), with each `kernel<<<...>>>(...)`
-launch rewritten to run its blocks on the host, one warp at a time.
+thread indices, a block's threads as coroutines, a warp's 32 lanes
+meeting at its ballots, barriers and shuffles, atomics), with each
+`kernel<<<...>>>(...)` launch rewritten to run its blocks on the host,
+one block at a time.
 Its three entry points, called through ops/dense_cuda.py's own argument
 packing (`_launch`), must give `render_dense.render_batch_plain`'s
 pending buffer and bytes (its `alphas`, then its `blend`), in both
@@ -108,7 +109,7 @@ def host_lib(tmp_path_factory):
     """csrc/dense.cu built by g++ for the host -> the loaded library."""
     src = open(os.path.join(CSRC_DIR, "dense.cu")).read()
     assert len(_LAUNCH.findall(src)) == 6, "dense.cu's launches changed; update _LAUNCH"
-    src = _LAUNCH.sub(lambda m: (f"host_launch(dim3({m[2]}), dim3({m[3]}), "
+    src = _LAUNCH.sub(lambda m: (f"host_launch(dim3({m[2]}), dim3({m[3]}), 0, "
                                  f"[&] {{ (void)s; {m[1]}({m[4]}); }});"), src)
     src += _CHECKS  # in the same translation unit: they see the anonymous namespace
     tmp = tmp_path_factory.mktemp("dense_host")
