@@ -127,6 +127,12 @@ Phases (any failure exits non-zero; no phase is skipped):
 6. Warm served path in this process (PNG cache off): per-tile spans of
    warm minicity z15 and bigcity z15 batches with labels off, and of
    minicity z15 with labels on.
+6b. The serving path's own records on the card:
+   tests/test_torch_trace_card.py in a fresh process.  Bars: on one
+   traced warm batch, every render and wire kernel inside its dispatch's
+   logged intervals (0.5 ms either way), and the CUDA-event "Device time
+   (batch share)" within 15 % of the profiler's render, memset and wire
+   operations.
 8. Serving on several renderers: one a GPU when the host has G >= 2,
    else two on cuda:0 (the split, each renderer's own arena, slab,
    palette and wires, and the gather).  (a) MeshTileRenderer
@@ -1664,7 +1670,7 @@ def phase_server(styler, rows_out, device="cuda", precision="fast", gpus=1,
             got = list(ex.map(get, reqs))
         serve_s = time.time() - t1
         status, perf_html = fetch(f"http://127.0.0.1:{port}/perf_stats", 60)
-        if status != 200 or b"Device execute" not in perf_html:
+        if status != 200 or b"Device time (batch share)" not in perf_html:
             raise AssertionError("/perf_stats did not report device spans")
         fetch(f"http://127.0.0.1:{port}/shutdown", 60)
         proc.wait(timeout=120)
@@ -1867,7 +1873,8 @@ def warm_tile_ms(svc, n: int, reps: int = 5):
     wall = (time.perf_counter() - t0) * 1e3 / (reps * len(tiles))
     root = svc.perf_stats.by_zoom[15]
     count = svc.perf_stats.tile_counts[15]
-    return wall, {k: 1e3 * v.total / count for k, v in root.children.items()}, len(tiles)
+    return wall, {k: 1e3 * v.total / count for k, v in root.children.items()
+                  if v.kind == "span"}, len(tiles)
 
 
 def phase_inprocess(styler, device):
@@ -1888,6 +1895,21 @@ def phase_inprocess(styler, device):
             f"{wall:.3f} ms/tile wall; per tile "
             + ", ".join(f"{k} {v:.3f} ms" for k, v in spans.items())
             + f"; batches {counts}")
+
+
+def phase_trace_card(smi):
+    """tests/test_torch_trace_card.py in a fresh process (its own
+    profiler; without the suite's conftest, which imports jax); its
+    device-time line is logged."""
+    proc = subprocess.run(
+        [sys.executable, "-m", "pytest", "--noconftest", "-q", "-s", "-p", "no:cacheprovider",
+         os.path.join("tests", "test_torch_trace_card.py")],
+        cwd=ROOT, capture_output=True, text=True, timeout=600)
+    lines = proc.stdout.strip().splitlines()
+    for line in lines if proc.returncode else [ln for ln in lines if "device time" in ln]:
+        log(f"    | {line} ({smi})")
+    if proc.returncode != 0 or "1 passed" not in proc.stdout:
+        raise AssertionError(f"tests/test_torch_trace_card.py failed (exit {proc.returncode})")
 
 
 def phase_decomp(prepared, row, smi):
@@ -2082,10 +2104,10 @@ def phase_multi(styler, smi, device):
     for several in (False, True):
         svc = service(BIG_BIN, False, several)
         wall, spans, n = warm_tile_ms(svc, 32)
-        ex = spans.get("Device execute (batch share)", 0.0)
+        ex = spans.get("Device time (batch share)", 0.0)
         ce = spans.get("Compose and encode", 0.0)
         log(f"  (e) bigcity z15 x{n} warm, labels off, {len(svc.batch_renderers)} "
-            f"renderer(s): {wall:.3f} ms/tile wall; device execute {ex:.3f} ms "
+            f"renderer(s): {wall:.3f} ms/tile wall; device time {ex:.3f} ms "
             f"({100 * ex / wall:.1f} %), compose and encode {ce:.3f} ms ({100 * ce / wall:.1f} %); "
             "per tile " + ", ".join(f"{k} {v:.3f} ms" for k, v in spans.items()) + f" ({smi})")
 
@@ -2440,6 +2462,11 @@ def main() -> int:
 
     log("phase 6: warm served path in process (PNG cache off; labels off, then on)")
     phase_inprocess(styler, device)
+
+    log("phase 6b: the serving path's records on the card (tests/test_torch_trace_card.py; "
+        "bars: every kernel inside its dispatch's logged intervals, the CUDA-event device "
+        "time within 15 % of the profiler's device operations)")
+    phase_trace_card(smi)
 
     log("phase 8: serving on several renderers (bars: (a) MeshTileRenderer byte-identical "
         "to one renderer, (b) served PNGs byte-identical to one renderer's, (c) the split "

@@ -1271,53 +1271,70 @@ int kernel_attrs(K kernel, int threads, int64_t* out) {
   return rc;
 }
 
+// Records `event` (a CUDA timing event of the caller's, or null) on `s`.
+void stamp(void* event, cudaStream_t s) {
+  if (event != nullptr) cudaEventRecord(static_cast<cudaEvent_t>(event), s);
+}
+
 }  // namespace
 
 extern "C" {
 
 // Each entry point launches its kernel on `stream` (no synchronisation)
 // and returns cudaGetLastError().  exact: 1 for (int64, f64), 0 for
-// (int32, f32).
+// (int32, f32).  t_start, t_end: CUDA timing events recorded just before
+// and just after the launch (neither when nothing launches), or null, so
+// a pair holds the launch's device time and no host code.
 
 int osmr_dense_stroke_alpha(const void* const* ptrs, const int64_t* dims, int exact, int chain,
-                            void* stream) {
+                            void* stream, void* t_start, void* t_end) {
   Params p = make_params(ptrs, dims);
   int64_t blocks = (p.d[D_NU] + STROKE_WARPS - 1) / STROKE_WARPS;
   blocks = blocks < (1 << 30) ? blocks : (1 << 30);  // the warps stride over the rest
   if (blocks < 1) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  stamp(t_start, s);
   if (exact)
     dense_stroke_alpha<int64_t, double><<<(unsigned)blocks, STROKE_THREADS, 0, s>>>(p, chain != 0);
   else
     dense_stroke_alpha<int32_t, float><<<(unsigned)blocks, STROKE_THREADS, 0, s>>>(p, chain != 0);
-  return (int)cudaGetLastError();
+  const cudaError_t err = cudaGetLastError();
+  stamp(t_end, s);
+  return (int)err;
 }
 
-int osmr_dense_fill_alpha(const void* const* ptrs, const int64_t* dims, int exact, void* stream) {
+int osmr_dense_fill_alpha(const void* const* ptrs, const int64_t* dims, int exact, void* stream,
+                          void* t_start, void* t_end) {
   Params p = make_params(ptrs, dims);
   if (p.d[D_FILL_BLOCKS] < 1 || p.d[D_NFU] < 1) return 0;
   if (p.d[D_EMAX] > FILL_PAIRS && p.scratch == nullptr) return (int)cudaErrorInvalidValue;
   if (p.d[D_EMAX] <= FILL_PAIRS) p.scratch = nullptr;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   unsigned blocks = (unsigned)p.d[D_FILL_BLOCKS];
+  stamp(t_start, s);
   if (exact)
     dense_fill_alpha<int64_t, double><<<blocks, 32 * FILL_WARPS, 0, s>>>(p);
   else
     dense_fill_alpha<int32_t, float><<<blocks, 32 * FILL_WARPS, 0, s>>>(p);
-  return (int)cudaGetLastError();
+  const cudaError_t err = cudaGetLastError();
+  stamp(t_end, s);
+  return (int)err;
 }
 
 int osmr_dense_blend_finalize(const void* const* ptrs, const int64_t* dims, int exact,
-                              void* stream) {
+                              void* stream, void* t_start, void* t_end) {
   Params p = make_params(ptrs, dims);
   const int64_t rects = (p.d[D_TS] + RECT - 1) / RECT;
   dim3 grid((unsigned)(rects * rects), (unsigned)p.d[D_T]);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  stamp(t_start, s);
   if (exact)
     dense_blend_finalize<double><<<grid, BLEND_THREADS, 0, s>>>(p);
   else
     dense_blend_finalize<float><<<grid, BLEND_THREADS, 0, s>>>(p);
-  return (int)cudaGetLastError();
+  const cudaError_t err = cudaGetLastError();
+  stamp(t_end, s);
+  return (int)err;
 }
 
 // Each kernel's registers a thread, local (spill) bytes, static shared

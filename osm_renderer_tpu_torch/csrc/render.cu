@@ -894,6 +894,15 @@ render_kernel(const Params p) {
   }
 }
 
+// Records `event` (a CUDA timing event of the caller's, or null) on
+// `stream`: the entries stamp one just before and one just after their
+// launch, so a pair holds the launch's device time and no host code.
+void stamp(void* event, void* stream) {
+  if (event != nullptr) {
+    cudaEventRecord(static_cast<cudaEvent_t>(event), static_cast<cudaStream_t>(stream));
+  }
+}
+
 }  // namespace
 
 extern "C" int osmr_render_planar(
@@ -902,7 +911,8 @@ extern "C" int osmr_render_planar(
     const int32_t* chunk_i, const float* chunk_f, const float* profiles,
     const float* prof_total, const float* patterns, const float* canvas,
     const int32_t* tile_range, const int32_t* label_tri, const int32_t* label_plane,
-    int label_cap, uint8_t* out, int n_tiles, int ts, void* stream) {
+    int label_cap, uint8_t* out, int n_tiles, int ts, void* stream, void* t_start,
+    void* t_end) {
   // A labeled launch needs both label pointers and a slab of at least
   // its identity row; the caller has checked every triple against the
   // tile and the slab.
@@ -915,8 +925,11 @@ extern "C" int osmr_render_planar(
   Params p{geom, trav, sprof, aux, items, rows, isec, chunk_i, chunk_f, profiles, prof_total,
            patterns, canvas, tile_range, label_tri, label_plane, out, items_stride, ts};
   const dim3 grid(ts / HALF, ts / RB, n_tiles);
+  stamp(t_start, stream);
   render_kernel<<<grid, NTHREADS, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(p);
-  return static_cast<int>(cudaGetLastError());
+  const cudaError_t launched = cudaGetLastError();
+  stamp(t_end, stream);
+  return static_cast<int>(launched);
 }
 
 // Threads a block, dynamic shared memory a block, and resident blocks an

@@ -393,12 +393,20 @@ __global__ void __launch_bounds__(THREADS) wire_kernel(
   }
 }
 
+// Records `event` (a CUDA timing event of the caller's, or null) on `s`:
+// the entries stamp one just before their memset and one just after
+// their launch, so a pair holds their device time and no host code.
+void stamp(void* event, cudaStream_t s) {
+  if (event != nullptr) cudaEventRecord(static_cast<cudaEvent_t>(event), s);
+}
+
 // Buffer layout, in int32 words: the wire (wire_words, padded to an even
 // count), then the scratch: the ticket counter (one uint64) and one
 // status word a segment.  One memset clears both.
 template <bool V2>
 int launch_wire(const uint8_t* planar, int n_tiles, int ts, int seg_px, const int32_t* table,
-                int32_t* buf, long long wire_words, int cap, void* stream) {
+                int32_t* buf, long long wire_words, int cap, void* stream, void* t_start,
+                void* t_end) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long long n_px = static_cast<long long>(ts) * ts;
   const bool wide = seg_px == THREADS * 16;
@@ -411,9 +419,13 @@ int launch_wire(const uint8_t* planar, int n_tiles, int ts, int seg_px, const in
   const int n_seg = static_cast<int>(n_tiles * n_px / seg_px);
   const long long lead = wire_words + wire_words % 2;
   auto* scratch = reinterpret_cast<unsigned long long*>(buf + lead);
+  stamp(t_start, s);
   cudaError_t err = cudaMemsetAsync(
       buf, 0, static_cast<size_t>(lead + 2 * (1 + static_cast<long long>(n_seg))) * 4, s);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  if (err != cudaSuccess) {
+    stamp(t_end, s);
+    return static_cast<int>(err);
+  }
   if (wide) {
     wire_kernel<16, V2><<<n_seg, THREADS, 0, s>>>(planar, static_cast<int>(n_px), n_tiles, n_seg,
                                                  table, buf, cap, scratch);
@@ -421,7 +433,9 @@ int launch_wire(const uint8_t* planar, int n_tiles, int ts, int seg_px, const in
     wire_kernel<1, V2><<<n_seg, THREADS, 0, s>>>(planar, static_cast<int>(n_px), n_tiles, n_seg,
                                                 table, buf, cap, scratch);
   }
-  return static_cast<int>(cudaGetLastError());
+  err = cudaGetLastError();
+  stamp(t_end, s);
+  return static_cast<int>(err);
 }
 
 }  // namespace
@@ -429,18 +443,22 @@ int launch_wire(const uint8_t* planar, int n_tiles, int ts, int seg_px, const in
 // planar: (T, 4, ts, ts) u8.  seg_px: pixels a segment, 4096 (ts * ts a
 // multiple of 4096, planar 16-byte aligned) or 256.  buf: the v1 wire,
 // (2 + T + rtot,) i32, padded to an even count, then the scratch, 2 + 2 *
-// (T * ts * ts / seg_px) i32; 8-byte aligned.
+// (T * ts * ts / seg_px) i32; 8-byte aligned.  t_start, t_end: CUDA
+// timing events recorded just before the memset and just after the
+// launch, or null.
 extern "C" int osmr_rle_wire_v1(const uint8_t* planar, int n_tiles, int ts, int seg_px,
-                                int32_t* buf, int rtot, void* stream) {
+                                int32_t* buf, int rtot, void* stream, void* t_start,
+                                void* t_end) {
   return launch_wire<false>(planar, n_tiles, ts, seg_px, nullptr, buf, 2LL + n_tiles + rtot,
-                            rtot, stream);
+                            rtot, stream, t_start, t_end);
 }
 
 // As osmr_rle_wire_v1, with table: (255,) palette, sorted ascending, and
 // buf: the v2 wire, (3 + T + 255 + wcap / 2,) i32 (wcap even), then the
 // scratch.
 extern "C" int osmr_rle_wire_v2(const uint8_t* planar, int n_tiles, int ts, int seg_px,
-                                const int32_t* table, int32_t* buf, int wcap, void* stream) {
+                                const int32_t* table, int32_t* buf, int wcap, void* stream,
+                                void* t_start, void* t_end) {
   return launch_wire<true>(planar, n_tiles, ts, seg_px, table, buf,
-                           3LL + n_tiles + PAL_CAP + wcap / 2, wcap, stream);
+                           3LL + n_tiles + PAL_CAP + wcap / 2, wcap, stream, t_start, t_end);
 }

@@ -106,7 +106,7 @@ def bind_render(lib: ctypes.CDLL) -> ctypes.CDLL:
         + [ctypes.c_void_p] * 9                          # rows, isec..tile_range
         + [ctypes.c_void_p] * 2 + [ctypes.c_int]         # label_tri, label_plane, its rows
         + [ctypes.c_void_p, ctypes.c_int, ctypes.c_int]  # out, n_tiles, ts
-        + [ctypes.c_void_p]                              # stream
+        + [ctypes.c_void_p] * 3                          # stream, t_start, t_end
     )
     lib.osmr_render_occupancy.restype = ctypes.c_int
     lib.osmr_render_occupancy.argtypes = [ctypes.POINTER(ctypes.c_int)] * 3
@@ -116,9 +116,9 @@ def bind_render(lib: ctypes.CDLL) -> ctypes.CDLL:
 def rle_library(ptxas_verbose: bool = False) -> ctypes.CDLL:
     lib = load_library("rle.cu", ptxas_verbose)
     P, I = ctypes.c_void_p, ctypes.c_int
-    # planar, T, ts, seg_px, [table,] wire and scratch, cap, stream
-    lib.osmr_rle_wire_v1.argtypes = [P, I, I, I, P, I, P]
-    lib.osmr_rle_wire_v2.argtypes = [P, I, I, I, P, P, I, P]
+    # planar, T, ts, seg_px, [table,] wire and scratch, cap, stream, t_start, t_end
+    lib.osmr_rle_wire_v1.argtypes = [P, I, I, I, P, I, P, P, P]
+    lib.osmr_rle_wire_v2.argtypes = [P, I, I, I, P, P, I, P, P, P]
     for fn in (lib.osmr_rle_wire_v1, lib.osmr_rle_wire_v2):
         fn.restype = ctypes.c_int
     return lib
@@ -137,10 +137,10 @@ def dense_constants() -> tuple:
 def dense_library(ptxas_verbose: bool = False) -> ctypes.CDLL:
     lib = load_library("dense.cu", ptxas_verbose)
     P, I = ctypes.c_void_p, ctypes.c_int
-    # ptrs, dims, exact, [chain,] stream
-    lib.osmr_dense_stroke_alpha.argtypes = [P, P, I, I, P]
-    lib.osmr_dense_fill_alpha.argtypes = [P, P, I, P]
-    lib.osmr_dense_blend_finalize.argtypes = [P, P, I, P]
+    # ptrs, dims, exact, [chain,] stream, t_start, t_end
+    lib.osmr_dense_stroke_alpha.argtypes = [P, P, I, I, P, P, P]
+    lib.osmr_dense_fill_alpha.argtypes = [P, P, I, P, P, P]
+    lib.osmr_dense_blend_finalize.argtypes = [P, P, I, P, P, P]
     lib.osmr_dense_kernel_attrs.argtypes = [I, P]
     for fn in (lib.osmr_dense_stroke_alpha, lib.osmr_dense_fill_alpha,
                lib.osmr_dense_blend_finalize, lib.osmr_dense_kernel_attrs,

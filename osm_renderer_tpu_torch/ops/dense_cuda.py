@@ -40,6 +40,7 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from osm_renderer_tpu_torch import perfstats
 from osm_renderer_tpu_torch.ops import render_dense as RD
 from osm_renderer_tpu_torch.ops.render_cuda import BatchLayoutError, on_cuda
 
@@ -276,13 +277,14 @@ def _launch(name: str, batch, pack, pending, *, chain: Optional[bool] = None, **
     dev = batch.geom.device
     ptr_arr, dim_arr = kernel_arguments(batch, pack, pending, **tensors)
     exact = int(pack.precision == "exact")
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    current = torch.cuda.current_stream(dev)
+    stream = (current.cuda_stream, *perfstats.launch_events(current))
     fn = getattr(lib, f"osmr_{name}")
     with torch.cuda.device(dev):
         if chain is None:
-            rc = fn(ptr_arr, dim_arr, exact, stream)
+            rc = fn(ptr_arr, dim_arr, exact, *stream)
         else:
-            rc = fn(ptr_arr, dim_arr, exact, int(chain), stream)
+            rc = fn(ptr_arr, dim_arr, exact, int(chain), *stream)
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed with cudaError_t {rc}")
     with _launch_lock:

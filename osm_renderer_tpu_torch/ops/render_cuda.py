@@ -35,6 +35,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from osm_renderer_tpu_torch import perfstats
 from osm_renderer_tpu_torch.ops import chunk_layout as L
 from osm_renderer_tpu_torch.parallel import label_slab as LS
 
@@ -248,7 +249,7 @@ def _launch(b: CudaBatch, canvas: torch.Tensor, ts: int, rows: Optional[torch.Te
     T = b.tile_range.shape[0]
     out = torch.empty((T, 4, ts, ts), dtype=torch.uint8, device=dev)
     ptr = lambda t: t.data_ptr() if t is not None else None
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    current = torch.cuda.current_stream(dev)
     with torch.cuda.device(dev):
         rc = lib.osmr_render_planar(
             b.geom.data_ptr(), b.trav.data_ptr(), b.sprof.data_ptr(), b.aux.data_ptr(),
@@ -257,7 +258,7 @@ def _launch(b: CudaBatch, canvas: torch.Tensor, ts: int, rows: Optional[torch.Te
             b.prof_total.data_ptr(), b.patterns.data_ptr(), canvas.data_ptr(),
             b.tile_range.data_ptr(), ptr(label_tri), ptr(label_plane),
             label_plane.shape[0] if label_plane is not None else 0, out.data_ptr(), T, ts,
-            stream,
+            current.cuda_stream, *perfstats.launch_events(current),
         )
     if rc != 0:
         raise RuntimeError(f"render kernel launch failed with cudaError_t {rc}")

@@ -33,6 +33,7 @@ from typing import Optional
 
 import torch
 
+from osm_renderer_tpu_torch import perfstats
 from osm_renderer_tpu_torch.ops.render_cuda import BatchLayoutError
 from osm_renderer_tpu_torch.ops.rle_layout import BLOCK, PAL_CAP
 
@@ -138,11 +139,11 @@ def _launch_wire(entry: str, planar: torch.Tensor, n_wire: int, cap: int,
     seg = segment_px(planar)
     lead = n_wire + n_wire % 2
     buf = torch.empty(lead + 2 * (1 + T * ts * ts // seg), dtype=torch.int32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    current = torch.cuda.current_stream(dev)
     args = [planar.data_ptr(), T, ts, seg]
     if table is not None:
         args.append(table.data_ptr())
-    args += [buf.data_ptr(), cap, stream]
+    args += [buf.data_ptr(), cap, current.cuda_stream, *perfstats.launch_events(current)]
     with torch.cuda.device(dev):
         rc = getattr(lib, entry)(*args)
     if rc != 0:

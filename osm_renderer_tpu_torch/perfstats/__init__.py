@@ -1,9 +1,14 @@
 from osm_renderer_tpu_torch.perfstats.spans import (
+    WAIT,
+    DeviceClock,
     PerfStats,
     add_span,
+    count,
     finish_tile,
+    launch_events,
     measure,
     start_tile,
 )
 
-__all__ = ["PerfStats", "add_span", "finish_tile", "measure", "start_tile"]
+__all__ = ["WAIT", "DeviceClock", "PerfStats", "add_span", "count", "finish_tile",
+           "launch_events", "measure", "start_tile"]

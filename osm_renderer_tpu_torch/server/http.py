@@ -26,6 +26,14 @@ the device did not label (plain upload batches under `osm_ids`), which
 get their labels composited on the host.  `containers` counts the
 device tiles served each way.
 
+Each tile's perfstats record holds, besides its spans, the request's
+wait in the batcher's queue, its share of the device dispatch it rode
+in and of that dispatch's device time (CUDA events), and whether it
+came from a raw batch and shipped as an RGB PNG (counts).  A service
+whose `perf_stats` keeps an interval log (`PerfStats(intervals=N)`)
+also logs each batch's phases on the profiler's clock, tagged with the
+batcher's batch id.
+
 `precision = "exact"` serves as the original does: a dense renderer
 (`BatchRenderer(backend="dense", precision="exact")`, int64/f64) on the
 service's device, with no chunk cache, no arena and no icon patterns
@@ -39,9 +47,13 @@ Both backends label with the port's fontTools-free labeler.
 from __future__ import annotations
 
 import asyncio
+import itertools
 import threading
 import time
 from collections import Counter, OrderedDict
+from contextlib import nullcontext
+from contextvars import ContextVar
+from dataclasses import dataclass
 from typing import Dict, List, Optional, Set, Tuple
 
 import torch
@@ -67,6 +79,27 @@ from osm_renderer_tpu_torch.utils.torch_setup import build_native_host_libs, res
 # "rgb_raw": the batch's wire; "rgb_host_labels": labels composited on
 # the host).
 CONTAINERS = ("png8", "rgb_overflow", "rgb_v1", "rgb_raw", "rgb_host_labels")
+
+
+@dataclass
+class _Batch:
+    """The micro-batch a render call serves: the batcher's id for it,
+    each request's `time.time_ns()` at its put on the batcher's queue,
+    and the render call's start (`render_tiles_device` sets it)."""
+
+    id: int
+    enqueued_ns: List[int]
+    start_ns: int = 0
+
+
+# Set by `run_server`'s batcher; `asyncio.to_thread` carries it into the
+# render thread.  A direct call of `render_tiles_device` finds it unset.
+_BATCH: ContextVar[Optional[_Batch]] = ContextVar("osmr_batch", default=None)
+
+
+def _batch_id() -> Optional[int]:
+    batch = _BATCH.get()
+    return None if batch is None else batch.id
 
 
 def extract_tile_from_path(path: str) -> Optional[Tuple[Tile, int]]:
@@ -293,15 +326,18 @@ class TileService:
             return 0
         return ((tile.x * 0x9E3779B1) ^ (tile.y * 0x85EBCA77) ^ tile.zoom) % n
 
-    def _dispatch_group_device(self, tiles_entities, scale: int, t_prep0: float,
+    def _dispatch_group_device(self, tiles_entities, scale: int, t_prep0: int,
                                compacts=None):
         """Split the batch by renderer (`_dev_idx`; one shard with one
         renderer), prepare every shard, then launch every shard's kernels
         and queue its wire's copy to the host, without waiting for the
-        devices, so they run together.  `compacts`: the tiles' committed
-        label layers, blended on the device on the arena path.  A dense
-        batch is queued as its raw (T, ts, ts, 3) output.  A shard's
-        ValueError (MAX_BATCH_CHUNKS) raises before anything launches."""
+        devices, so they run together.  `t_prep0`: `time.time_ns()` as
+        the dispatch began.  `compacts`: the tiles' committed label
+        layers, blended on the device on the arena path.  A dense batch is
+        queued as its raw (T, ts, ts, 3) output.  A shard on a CUDA device
+        carries the `DeviceClock` of its kernel launches (render and wire,
+        or the dense kernels; None on the CPU).  A shard's ValueError
+        (MAX_BATCH_CHUNKS) raises before anything launches."""
         by_dev: Dict[int, List[int]] = {}
         for i, (_, t) in enumerate(tiles_entities):
             by_dev.setdefault(self._dev_idx(t), []).append(i)
@@ -315,18 +351,20 @@ class TileService:
             needs_cpu.update(idxs[f] for f in prepared.cpu_fallback_tiles)
             device_labeled.update(idxs[f] for f in prepared.device_labeled)
             staged.append((d, idxs, prepared))
-        prep_dt = time.perf_counter() - t_prep0
-        t0 = time.perf_counter()
+        prep_dt = (time.time_ns() - t_prep0) / 1e9
         shards = []
         for d, idxs, prepared in staged:
             r = self.batch_renderers[d]
-            if prepared.precision != "cuda":
-                res = r.render_prepared(prepared)
-            else:
-                res = start_wire_copy(r.render_prepared_rle(prepared))
+            clock = perfstats.DeviceClock() if r.device.type == "cuda" else None
+            with clock.running() if clock is not None else nullcontext():
+                if prepared.precision != "cuda":
+                    res = r.render_prepared(prepared)
+                else:
+                    res = start_wire_copy(r.render_prepared_rle(prepared))
             self.tiles_by_renderer[d] += len(idxs)
-            shards.append((d, idxs, res))
-        return shards, needs_cpu, prep_dt, t0, device_labeled
+            shards.append((d, idxs, res, clock))
+        self.perf_stats.log("Dispatch", t_prep0, time.time_ns(), _batch_id())
+        return shards, needs_cpu, prep_dt, device_labeled
 
     def _prepare_shard(self, renderer: BatchRenderer, tiles_entities, scale: int, compacts):
         """`renderer.prepare`, with the entities of every tile fetched
@@ -347,42 +385,60 @@ class TileService:
 
     def _collect_group_device(self, pending):
         """Wait for every shard of a dispatched batch and fetch its wire:
-        (view, needs_cpu, prep_dt, exec_dt, d2h_dt, device_labeled), the
-        view a `_ShardedTileView` over several shards.  Execute (dispatch
-        to kernels done) and readback (wire copy and parse, or the raw
-        planar fetch on overflow) are separate spans."""
-        shards, needs_cpu, prep_dt, t0, device_labeled = pending
-        for _, _, res in shards:
+        (view, needs_cpu, prep_dt, dispatch, d2h_dt, device_labeled), the
+        view a `_ShardedTileView` over several shards.  `dispatch[i]`:
+        the number of tiles in tile i's shard, and the device seconds of
+        that shard's kernel launches by CUDA events (None on the CPU),
+        read after the wait.  `d2h_dt`: the readback's seconds (wire copy
+        and parse, or the raw planar fetch on overflow)."""
+        shards, needs_cpu, prep_dt, device_labeled = pending
+        bid = _batch_id()
+        t0 = time.time_ns()
+        for _, _, res, _ in shards:
             if not isinstance(res, torch.Tensor):
                 wait_executed(res)
             elif res.is_cuda:
                 torch.cuda.synchronize(res.device)
-        exec_dt = time.perf_counter() - t0
-        t1 = time.perf_counter()
+        self.perf_stats.log("Device wait", t0, time.time_ns(), bid)
+        dispatch = [None] * sum(len(idxs) for _, idxs, _, _ in shards)
+        for _, idxs, _, clock in shards:
+            dev_s = None if clock is None else clock.seconds()
+            for i in idxs:
+                dispatch[i] = (len(idxs), dev_s)
+        t1 = time.time_ns()
         views = []
-        for d, _, res in shards:
+        for d, _, res, _ in shards:
             if isinstance(res, torch.Tensor):
                 # Dense batch: one device-to-host copy.
                 rgb = res.cpu().numpy()
                 views.append(RleTileView(rgb.shape[0], rgb.shape[1], rgb=rgb))
             else:
                 views.append(self.batch_renderers[d].fetch_tile_view(res))
-        d2h_dt = time.perf_counter() - t1
+        d2h_dt = (time.time_ns() - t1) / 1e9
         view = views[0] if len(views) == 1 else _ShardedTileView(
-            views, [idxs for _, idxs, _ in shards])
-        return view, needs_cpu, prep_dt, exec_dt, d2h_dt, device_labeled
+            views, [idxs for _, idxs, _, _ in shards])
+        return view, needs_cpu, prep_dt, dispatch, d2h_dt, device_labeled
 
     def render_tiles_device(self, requests: List[Tuple[Tile, int]]) -> List[bytes]:
         """Batched device render; one dispatch per scale group, split by
         renderer when there are several (tiles the batch cannot represent
-        fall back to the C++ oracle)."""
+        fall back to the C++ oracle).  Called by `run_server`'s batcher
+        (`_BATCH` set), it adds each request's queue wait to its tile's
+        record and tags the batch's logged intervals with its id."""
+        t_start = time.time_ns()
+        batch = _BATCH.get()
+        bid = None
+        if batch is not None:
+            bid, batch.start_ns = batch.id, t_start
+            for t in batch.enqueued_ns:
+                self.perf_stats.log("Queue wait", t, t_start, bid)
         out: Dict[int, bytes] = {}
         by_scale: Dict[int, List[Tuple[int, Tile]]] = {}
         for i, (tile, scale) in enumerate(requests):
             by_scale.setdefault(scale, []).append((i, tile))
 
         for scale, group in by_scale.items():
-            t0 = time.perf_counter()
+            t0 = time.time_ns()
             ts = 256 * scale
 
             # Entity fetch is skipped when both the tile's renderer's chunk
@@ -408,7 +464,7 @@ class TileService:
                     compacts.append(
                         self.labeler.ensure_layer(entities, t, float(scale), self.styler, ts)
                     )
-            ent_dt = time.perf_counter() - t0
+            ent_dt = (time.time_ns() - t0) / 1e9
             n = len(group)
             n_uncached = sum(1 for e, _ in tiles_entities if e is not None)
             if n > self.COLD_SUB and 2 * n_uncached > self.COLD_SUB:
@@ -424,12 +480,12 @@ class TileService:
             for sl in subs + [None]:
                 pending = None
                 if sl is not None:
-                    t0 = time.perf_counter()
+                    t0 = time.time_ns()
                     try:
                         pending = ("dispatched", self._dispatch_group_device(
                             tiles_entities[sl], scale, t0, sub_compacts(sl)))
                     except ValueError as e:
-                        pending = ("err", time.perf_counter() - t0, str(e))
+                        pending = ("err", (time.time_ns() - t0) / 1e9, str(e))
                 if inflight is not None:
                     psl, pp = inflight
                     if pp[0] == "dispatched":
@@ -446,6 +502,7 @@ class TileService:
                     self._encode_sub(group[psl], tiles_entities[psl], scale, out, ent_dt / n,
                                      sub_compacts(psl), *res)
                 inflight = (sl, pending) if sl is not None else None
+        self.perf_stats.log("Batch", t_start, time.time_ns(), bid)
         return [out[i] for i in range(len(requests))]
 
     def _encode_split_sub(self, sub_group, sub_te, scale, out, ent_share, sub_compacts) -> None:
@@ -460,7 +517,7 @@ class TileService:
         mid = n // 2
         for sl in (slice(0, mid), slice(mid, n)):
             sc = sub_compacts[sl] if sub_compacts is not None else None
-            t0 = time.perf_counter()
+            t0 = time.time_ns()
             try:
                 res = self._collect_group_device(
                     self._dispatch_group_device(sub_te[sl], scale, t0, sc))
@@ -472,17 +529,33 @@ class TileService:
             self._encode_sub(sub_group[sl], sub_te[sl], scale, out, ent_share, sc, *res)
 
     def _encode_sub(self, sub_group, sub_te, scale, out, ent_share, sub_compacts,
-                    view, needs_cpu, prep_dt, exec_dt, d2h_dt, device_labeled) -> None:
+                    view, needs_cpu, prep_dt, dispatch, d2h_dt, device_labeled) -> None:
+        """Encode a collected sub-batch and finish each tile's perfstats
+        record, with request i's wait in the batcher's queue when the
+        batcher made the call (`_BATCH`).  `dispatch`, `d2h_dt`: as
+        `_collect_group_device` gives them, None when nothing was
+        dispatched."""
+        t_enc0 = time.time_ns()
+        batch = _BATCH.get()
         n = len(sub_group)
         for gi, ((i, t), (entities, _)) in enumerate(zip(sub_group, sub_te)):
             # The device renders the whole sub-batch at once, so its phases are
             # attributed to its tiles as equal shares of measured spans.
             perfstats.start_tile(t.zoom)
+            if batch is not None:
+                perfstats.add_span("Queue wait", (batch.start_ns - batch.enqueued_ns[i]) / 1e9,
+                                   perfstats.WAIT)
             perfstats.add_span("Get tile entities (batch share)", ent_share)
             perfstats.add_span("Prepare device batch (batch share)", prep_dt / n)
-            if exec_dt is not None and d2h_dt is not None:
-                perfstats.add_span("Device execute (batch share)", exec_dt / n)
+            if dispatch is not None:
+                shard_n, dev_s = dispatch[gi]
+                perfstats.count("Device dispatches (batch share)", 1.0 / shard_n)
+                perfstats.count("Dispatched tiles")
+                if dev_s is not None:
+                    perfstats.add_span("Device time (batch share)", dev_s / shard_n)
                 perfstats.add_span("Device readback (batch share)", d2h_dt / n)
+            # A device tile's (RGB PNG, from a raw batch); None for the oracle's.
+            shipped = None
             with perfstats.measure("Compose and encode"):
                 if gi in needs_cpu or view is None:
                     self.tiles_served["oracle"] += 1
@@ -505,6 +578,7 @@ class TileService:
                         fmt = view.wire_fmt(gi)
                         self.containers["rgb_host_labels" if host_labels else
                                         "rgb_overflow" if fmt == "v2" else f"rgb_{fmt}"] += 1
+                        shipped = (1.0, float(fmt == "raw"))
                         img = view.rgb(gi)
                         if host_labels:
                             # Host composite: batches without the label
@@ -514,10 +588,16 @@ class TileService:
                         png = rgb_to_png(img, self.png_level)
                     else:
                         self.containers["png8"] += 1
+                        shipped = (0.0, 0.0)
                     out[i] = png
+            if shipped is not None:
+                # Every device tile counts 1 or 0, so a window with none reads 0.
+                perfstats.count("Tiles as RGB PNG", shipped[0])
+                perfstats.count("Tiles from raw batches", shipped[1])
             self._png_cache_put(t, scale, out[i])
             with self._perf_lock:
                 perfstats.finish_tile(self.perf_stats)
+        self.perf_stats.log("Compose and encode", t_enc0, time.time_ns(), _batch_id())
 
 
 async def run_server(
@@ -529,7 +609,7 @@ async def run_server(
     batch_queue: asyncio.Queue = asyncio.Queue()
 
     async def batcher():
-        while True:
+        for batch_id in itertools.count():
             items = [await batch_queue.get()]
             try:
                 deadline = loop.time() + batch_window_ms / 1e3
@@ -540,14 +620,17 @@ async def run_server(
                     items.append(await asyncio.wait_for(batch_queue.get(), timeout))
             except asyncio.TimeoutError:
                 pass
-            reqs = [(t, s) for (t, s, _) in items]
+            reqs = [(t, s) for (t, s, _, _) in items]
+            # Read on the render thread: `to_thread` runs the call in a
+            # copy of this task's context.
+            _BATCH.set(_Batch(batch_id, [enq for (_, _, _, enq) in items]))
             try:
                 pngs = await asyncio.to_thread(service.render_tiles_device, reqs)
-                for (_, _, fut), png in zip(items, pngs):
+                for (_, _, fut, _), png in zip(items, pngs):
                     if not fut.done():
                         fut.set_result(png)
             except Exception as e:  # handed to every waiting request
-                for (_, _, fut) in items:
+                for (_, _, fut, _) in items:
                     if not fut.done():
                         fut.set_exception(e)
 
@@ -576,7 +659,7 @@ async def run_server(
             png = service.png_cache_get(tile, scale)
             if png is None and service.backend == "device":
                 fut = loop.create_future()
-                await batch_queue.put((tile, scale, fut))
+                await batch_queue.put((tile, scale, fut, time.time_ns()))
                 png = await fut
             elif png is None:
                 png = await asyncio.to_thread(service.render_tile_cpu, tile, scale)

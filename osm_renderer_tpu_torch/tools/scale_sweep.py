@@ -122,15 +122,16 @@ def arena_states(svc) -> List[Dict[str, int]]:
 
 
 def span_ms(stats) -> Dict[str, float]:
-    """The server's top-level spans (`perfstats`), ms a tile over every
-    zoom: entities and label placement, prepare (cold assembly, arena
-    insert, packed upload), device execute, readback, compose and
-    encode."""
+    """The server's top-level spans (`perfstats`; its counts left out),
+    ms a tile over every zoom: entities and label placement, prepare
+    (cold assembly, arena insert, packed upload), device time, readback,
+    compose and encode."""
     n = sum(stats.tile_counts.values())
     out: Dict[str, float] = {}
     for root in stats.by_zoom.values():
         for name, node in root.children.items():
-            out[name] = out.get(name, 0.0) + 1e3 * node.total / n
+            if node.kind == "span":
+                out[name] = out.get(name, 0.0) + 1e3 * node.total / n
     return out
 
 

@@ -122,9 +122,9 @@ def host_lib(tmp_path_factory):
     assert proc.returncode == 0, proc.stderr[-4000:]
     lib = ctypes.CDLL(str(so))
     Pt, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-    lib.osmr_dense_stroke_alpha.argtypes = [Pt, Pt, I, I, Pt]
-    lib.osmr_dense_fill_alpha.argtypes = [Pt, Pt, I, Pt]
-    lib.osmr_dense_blend_finalize.argtypes = [Pt, Pt, I, Pt]
+    lib.osmr_dense_stroke_alpha.argtypes = [Pt, Pt, I, I, Pt, Pt, Pt]
+    lib.osmr_dense_fill_alpha.argtypes = [Pt, Pt, I, Pt, Pt, Pt]
+    lib.osmr_dense_blend_finalize.argtypes = [Pt, Pt, I, Pt, Pt, Pt]
     lib.host_floor_div64.argtypes = [Pt, L, L, Pt]
     lib.host_check_tables.argtypes = [Pt, Pt, I, I, Pt]
     return lib
