@@ -150,7 +150,10 @@ def main(argv=None) -> int:
               f"{len(service.batch_renderers)} renderer(s) on {devices})", flush=True)
     else:
         print(f"Serving tiles on http://{address} (backend={backend})", flush=True)
-    asyncio.run(run_server(address, service))
+    try:
+        asyncio.run(run_server(address, service))
+    finally:
+        service.close()
     if backend == "device":
         print(f"render kernel launches while serving: {render_cuda.RENDER_KERNEL_LAUNCHES}")
         print(f"emit kernel launches while serving: {rle_cuda.EMIT_KERNEL_LAUNCHES}")

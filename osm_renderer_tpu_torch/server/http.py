@@ -24,7 +24,11 @@ through the same codec and ship as RGB PNGs: tiles
 of a v1 or raw batch, tiles of more than 256 colours, and labeled tiles
 the device did not label (plain upload batches under `osm_ids`), which
 get their labels composited on the host.  `containers` counts the
-device tiles served each way.
+device tiles served each way.  The codec work of a sub-batch's device
+tiles runs on the service's encode pool, a thread a CPU the process may
+use but two (`encode_pool_width`), since the codec's ctypes calls and
+zlib release the interpreter lock; the tiles are recorded in order on
+the render thread once every task has ended.
 
 Each tile's perfstats record holds, besides its spans, the request's
 wait in the batcher's queue, its share of the device dispatch it rode
@@ -48,9 +52,11 @@ from __future__ import annotations
 
 import asyncio
 import itertools
+import os
 import threading
 import time
 from collections import Counter, OrderedDict
+from concurrent.futures import ThreadPoolExecutor, wait
 from contextlib import nullcontext
 from contextvars import ContextVar
 from dataclasses import dataclass
@@ -100,6 +106,29 @@ _BATCH: ContextVar[Optional[_Batch]] = ContextVar("osmr_batch", default=None)
 def _batch_id() -> Optional[int]:
     batch = _BATCH.get()
     return None if batch is None else batch.id
+
+
+def encode_pool_width() -> int:
+    """Threads of a service's encode pool: the CPUs the calling thread
+    may run on, less two for the HTTP event loop and the render thread,
+    and at least 1 (1: no pool, tiles encode on the render thread)."""
+    return max(len(os.sched_getaffinity(0)) - 2, 1)
+
+
+def _encode_device_tile(view, gi: int, level: int) -> Tuple[bytes, Optional[str], float]:
+    """Tile `gi` of a fetched view -> (PNG, wire, seconds of work): PNG-8
+    straight from the v2 wire when its colours fit a palette (wire None),
+    else its RGB pixels as an RGB PNG (wire: the format of the wire it
+    came on).  A pure function of the view, which nothing writes after
+    `fetch_tile_view`, so the encode pool runs it on any thread: the
+    codec's ctypes calls and zlib release the interpreter lock."""
+    t0 = time.perf_counter()
+    png = view.png8(gi, level)
+    wire = None
+    if png is None:
+        wire = view.wire_fmt(gi)
+        png = rgb_to_png(view.rgb(gi), level)
+    return png, wire, time.perf_counter() - t0
 
 
 def extract_tile_from_path(path: str) -> Optional[Tuple[Tile, int]]:
@@ -235,6 +264,10 @@ class TileService:
         # Device tiles by PNG container (CONTAINERS).
         self.containers: Counter = Counter()
         self.halvings = 0
+        # The encode pool (`_encode_pool`): started on first use, stopped
+        # by `close`.
+        self._pool: Optional[ThreadPoolExecutor] = None
+        self._pool_lock = threading.Lock()
         if backend == "cpu":
             return
         # The host codec every device-path tile is decoded and encoded
@@ -279,6 +312,26 @@ class TileService:
             with self._png_cache_lock:
                 self._png_cache.clear()
         return len(seen)
+
+    def _encode_pool(self) -> Optional[ThreadPoolExecutor]:
+        """The pool that encodes a sub-batch's device tiles, started on
+        first use from the calling thread (the render thread), whose CPUs
+        its threads inherit, `encode_pool_width()` threads wide; None when
+        that width is 1."""
+        with self._pool_lock:
+            if self._pool is None:
+                width = encode_pool_width()
+                if width > 1:
+                    self._pool = ThreadPoolExecutor(width, thread_name_prefix="osmr-encode")
+            return self._pool
+
+    def close(self) -> None:
+        """Stop the encode pool and join its threads (a later render call
+        starts a new one)."""
+        with self._pool_lock:
+            pool, self._pool = self._pool, None
+        if pool is not None:
+            pool.shutdown(wait=True)
 
     def png_cache_get(self, tile: Tile, scale: int) -> Optional[bytes]:
         if not self.png_cache_tiles:
@@ -534,10 +587,37 @@ class TileService:
         record, with request i's wait in the batcher's queue when the
         batcher made the call (`_BATCH`).  `dispatch`, `d2h_dt`: as
         `_collect_group_device` gives them, None when nothing was
-        dispatched."""
+        dispatched.
+
+        The device tiles whose PNG the view alone decides (all but the
+        oracle's and those that take the host label composite) encode on
+        the service's encode pool, every task done before the tiles are
+        recorded in order on this thread; a sub-batch of one such tile,
+        or a pool of width 1, encodes them here.  A tile's "Compose and
+        encode" is its own work, wherever it ran; "Compose and encode
+        wall (batch share)" is this thread's wall time from the first
+        task to the last result, split over the sub-batch."""
         t_enc0 = time.time_ns()
         batch = _BATCH.get()
         n = len(sub_group)
+
+        def host_labels(gi: int) -> bool:
+            return (sub_compacts is not None and sub_compacts[gi] is not None
+                    and gi not in device_labeled)
+
+        codec = [] if view is None else [
+            gi for gi in range(n) if gi not in needs_cpu and not host_labels(gi)]
+        pool = self._encode_pool() if len(codec) > 1 else None
+        t_wall0 = time.perf_counter()
+        if pool is None:
+            coded = {gi: _encode_device_tile(view, gi, self.png_level) for gi in codec}
+        else:
+            futures = [pool.submit(_encode_device_tile, view, gi, self.png_level)
+                       for gi in codec]
+            # Every task ends before a failed one's error leaves this call.
+            wait(futures)
+            coded = {gi: f.result() for gi, f in zip(codec, futures)}
+        wall_share = (time.perf_counter() - t_wall0) / n
         for gi, ((i, t), (entities, _)) in enumerate(zip(sub_group, sub_te)):
             # The device renders the whole sub-batch at once, so its phases are
             # attributed to its tiles as equal shares of measured spans.
@@ -554,42 +634,36 @@ class TileService:
                 if dev_s is not None:
                     perfstats.add_span("Device time (batch share)", dev_s / shard_n)
                 perfstats.add_span("Device readback (batch share)", d2h_dt / n)
+            perfstats.add_span("Compose and encode wall (batch share)", wall_share)
             # A device tile's (RGB PNG, from a raw batch); None for the oracle's.
             shipped = None
-            with perfstats.measure("Compose and encode"):
-                if gi in needs_cpu or view is None:
-                    self.tiles_served["oracle"] += 1
-                    if entities is None:
-                        entities = self.reader.get_entities_in_tile_with_neighbors(
-                            t, self.osm_ids)
-                    img = self._cpu_drawer().draw_to_pixels(entities, t, scale, self.styler)
-                    out[i] = rgb_to_png(img, self.png_level)
+            if gi in coded:
+                self.tiles_served["device"] += 1
+                out[i], wire, work_s = coded[gi]
+                perfstats.add_span("Compose and encode", work_s)
+                if wire is None:
+                    self.containers["png8"] += 1
+                    shipped = (0.0, 0.0)
                 else:
-                    self.tiles_served["device"] += 1
-                    compact = sub_compacts[gi] if sub_compacts is not None else None
-                    png = None
-                    host_labels = compact is not None and gi not in device_labeled
-                    if not host_labels:
-                        # Unlabeled, or labeled on the device: PNG-8
-                        # straight from the v2 wire when the tile's
-                        # colours fit a PNG palette.
-                        png = view.png8(gi, self.png_level)
-                    if png is None:
-                        fmt = view.wire_fmt(gi)
-                        self.containers["rgb_host_labels" if host_labels else
-                                        "rgb_overflow" if fmt == "v2" else f"rgb_{fmt}"] += 1
-                        shipped = (1.0, float(fmt == "raw"))
-                        img = view.rgb(gi)
-                        if host_labels:
-                            # Host composite: batches without the label
-                            # slab (the plain upload under osm_ids).
-                            img = self.labeler.composite_labels(
-                                img, entities, t, float(scale), self.styler)
-                        png = rgb_to_png(img, self.png_level)
+                    self.containers["rgb_overflow" if wire == "v2" else f"rgb_{wire}"] += 1
+                    shipped = (1.0, float(wire == "raw"))
+            else:
+                with perfstats.measure("Compose and encode"):
+                    if gi in needs_cpu or view is None:
+                        self.tiles_served["oracle"] += 1
+                        if entities is None:
+                            entities = self.reader.get_entities_in_tile_with_neighbors(
+                                t, self.osm_ids)
+                        img = self._cpu_drawer().draw_to_pixels(entities, t, scale, self.styler)
                     else:
-                        self.containers["png8"] += 1
-                        shipped = (0.0, 0.0)
-                    out[i] = png
+                        # Host composite: batches without the label slab
+                        # (the plain upload under osm_ids).
+                        self.tiles_served["device"] += 1
+                        self.containers["rgb_host_labels"] += 1
+                        shipped = (1.0, float(view.wire_fmt(gi) == "raw"))
+                        img = self.labeler.composite_labels(
+                            view.rgb(gi), entities, t, float(scale), self.styler)
+                    out[i] = rgb_to_png(img, self.png_level)
             if shipped is not None:
                 # Every device tile counts 1 or 0, so a window with none reads 0.
                 perfstats.count("Tiles as RGB PNG", shipped[0])
